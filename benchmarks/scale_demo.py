@@ -1,11 +1,9 @@
-"""Single-chip scale demonstration: dense + hybrid at multi-million chunks.
+"""One-device scale demonstration: the dense scan at multi-million chunks.
 
-The BASELINE 10M-chunk config targets v5e-8 (10M x 1024 bf16 = 20GB,
-sharded 2.5GB/chip); a single v5e chip (16GB HBM) holds a 2M-chunk shard
-directly — the same per-chip working set as ~8M chunks on the pod. This
-script measures the per-chip shard-scan cost that the sharded design
-(shard/search.py) runs in parallel on every chip, plus the ICI merge cost
-modeled from candidate sizes.
+A corpus sharded over a 'data' mesh (shard/search.py) scans one row
+block per device in parallel and merges O(B*k*shards) candidates. This
+script measures the per-device shard scan (dense_topk: the fused Triton
+kernel on the GPU) at a shard of n_chunks x 1024 bf16.
 
 Usage: python benchmarks/scale_demo.py [n_chunks]
 """
@@ -13,28 +11,30 @@ Usage: python benchmarks/scale_demo.py [n_chunks]
 from __future__ import annotations
 
 import json
+import pathlib
 import sys
 import time
 
 import numpy as np
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def main(n: int = 2_000_000):
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      str(__import__("pathlib").Path(__file__).parent.parent
-                          / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from tpurag.kernels.dense import dense_topk
+    from tpurag.utils.compile_cache import enable_compile_cache
 
-    from tpurag.kernels.dense import dense_topk_pallas
+    enable_compile_cache()
 
     d, b, k = 1024, 512, 8
     rng = np.random.default_rng(0)
     print(f"building {n:,} x {d} bf16 corpus "
-          f"({n * d * 2 / 1e9:.1f} GB HBM)...", file=sys.stderr, flush=True)
-    # Build on-device in slabs to avoid a 8GB host f32 intermediate.
+          f"({n * d * 2 / 1e9:.1f} GB on the device)...", file=sys.stderr,
+          flush=True)
+    # Build on-device in slabs to avoid an 8GB host f32 intermediate.
     slabs = []
     slab_rows = 250_000
     for s in range(0, n, slab_rows):
@@ -55,7 +55,7 @@ def main(n: int = 2_000_000):
     def chained(x0, emb_arg):  # corpus as an arg, not a captured constant
         def body(i, acc):
             qq = q_dev * (1.0 + i.astype(jnp.float32) * 1e-7)
-            v, ids = dense_topk_pallas(qq, emb_arg, nv, k)
+            v, ids = dense_topk(qq, emb_arg, nv, k)
             return acc + v.sum()
         return jax.lax.fori_loop(0, iters, body, x0)
 
@@ -69,17 +69,18 @@ def main(n: int = 2_000_000):
         float(chained(jnp.float32(0.0), emb))
         ts.append((time.perf_counter() - t0) / iters)
     sec = min(ts)
-    hbm_gb = n * d * 2 / 1e9
+    corpus_gb = n * d * 2 / 1e9
     print(json.dumps({
-        "metric": "dense_scan_per_chip",
+        "metric": "dense_scan_per_device",
+        "device": jax.devices()[0].device_kind,
         "n_chunks": n,
         "batch": b,
         "ms_per_batch": round(sec * 1e3, 2),
         "qps": round(b / sec, 1),
-        "hbm_gb": round(hbm_gb, 2),
-        "effective_hbm_gbps": round(hbm_gb / sec, 1),
-        "note": ("per-chip shard scan; v5e-8 runs 8 of these in parallel "
-                 "on a sharded corpus + O(B*k*shards) ICI merge"),
+        "corpus_gb": round(corpus_gb, 2),
+        "effective_read_gbps": round(corpus_gb / sec, 1),
+        "note": ("per-device shard scan; a sharded corpus runs one of "
+                 "these per device + an O(B*k*shards) merge"),
     }))
 
 

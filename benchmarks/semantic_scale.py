@@ -1,4 +1,4 @@
-"""Semantic retrieval PAST toy scale (round-3 verdict item 6).
+"""Semantic retrieval PAST toy scale.
 
 No pretrained checkpoint exists in this zero-egress image (no HF cache,
 no local safetensors), so the reference's externally-trained-embedding
@@ -24,7 +24,7 @@ Why this fixture is hard (vs tests/test_semantic.py's 64-topic toy):
 
 Scale class: BPE-2048 subword vocab (ingest/subword.py), dim-256
 4-layer 8-head encoder (~3.3M params), seq_len 32, 3000 InfoNCE steps
-at batch 256 on the TPU — roughly 50x the toy fixture's training
+at batch 256 on the device — roughly 50x the toy fixture's training
 compute, through the same train_contrastive entry the CLI uses.
 
 Output: one JSON line per embedder config with recall@1/recall@10

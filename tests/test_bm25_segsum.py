@@ -2,10 +2,13 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from tpurag.core.config import BM25Config
-from tpurag.index.inverted import InvertedIndex
-from tpurag.kernels.bm25 import bm25_topk, bm25_topk_segsum
+from tpurag.index.inverted import InvertedIndex, _bucket_score
+from tpurag.kernels.bm25 import (_gather_candidates, bm25_topk,
+                                 bm25_topk_segsum, merge_segsum_full_xla,
+                                 segsum_topk_candidates)
 from tpurag.kernels.runtime import NEG_INF
 
 
@@ -35,17 +38,21 @@ def make_args(rng, n=3000, vocab=200, b=6, t=5, p_max=64):
             jnp.asarray(dnorm), jnp.int32(n))
 
 
-def test_segsum_matches_scatter(rng):
-    args = make_args(rng)
-    v1, i1 = bm25_topk(*args, k=10, p_max=64)
-    st, ln, idf, pd, pi, dn, nv = args
-    v2, i2 = bm25_topk_segsum(st, ln, idf, pd, pi, nv, k=10, p_max=64)
+def _assert_topk_close(v1, i1, v2, i2):
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), atol=1e-4)
     # ids may differ on exact ties; compare where scores are distinct
     v = np.asarray(v1)
     distinct = np.abs(v - np.roll(v, 1, axis=1)) > 1e-6
     np.testing.assert_array_equal(
         np.asarray(i1)[distinct], np.asarray(i2)[distinct])
+
+
+def test_segsum_matches_scatter(rng):
+    args = make_args(rng)
+    v1, i1 = bm25_topk(*args, k=10, p_max=64)
+    st, ln, idf, pd, pi, dn, nv = args
+    v2, i2 = bm25_topk_segsum(st, ln, idf, pd, pi, nv, k=10, p_max=64)
+    _assert_topk_close(v1, i1, v2, i2)
 
 
 def test_segsum_duplicate_doc_merge(rng):
@@ -64,28 +71,16 @@ def test_segsum_duplicate_doc_merge(rng):
     assert abs(got[9] - 2.2) < 1e-5
 
 
-def test_fused_pallas_matches_segsum(rng):
-    # t=4 (pow2, one term slot zeroed), p_max=64 -> exercises the kernel's
-    # merge network + prefix sums in interpret mode.
-    args = make_args(rng, t=4, p_max=64)
+@pytest.mark.parametrize("t,p_max", [(4, 64), (1, 32), (8, 16)])
+def test_segsum_candidates_match_scatter(rng, t, p_max):
+    # The index's scoring tail (segsum_topk_candidates over gathered
+    # candidates) against the scatter-add oracle, one term slot zeroed.
+    args = make_args(rng, t=t, p_max=p_max)
     st, ln, idf, pd, pi, dn, nv = args
-    from tpurag.kernels.bm25_pallas import bm25_topk_fused
-    v1, i1 = bm25_topk_segsum(st, ln, idf, pd, pi, nv, k=10, p_max=64)
-    v2, i2 = bm25_topk_fused(st, ln, idf, pd, pi, nv, k=10, p_max=64)
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), atol=1e-4)
-    v = np.asarray(v1)
-    distinct = np.abs(v - np.roll(v, 1, axis=1)) > 1e-6
-    np.testing.assert_array_equal(np.asarray(i1)[distinct],
-                                  np.asarray(i2)[distinct])
-
-
-def test_fused_pallas_single_term(rng):
-    args = make_args(rng, t=1, p_max=32)
-    st, ln, idf, pd, pi, dn, nv = args
-    from tpurag.kernels.bm25_pallas import bm25_topk_fused
-    v1, i1 = bm25_topk_segsum(st, ln, idf, pd, pi, nv, k=5, p_max=32)
-    v2, i2 = bm25_topk_fused(st, ln, idf, pd, pi, nv, k=5, p_max=32)
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), atol=1e-4)
+    v1, i1 = bm25_topk(*args, k=10, p_max=p_max)
+    doc, con = _gather_candidates(st, ln, idf, pd, pi, nv, p_max)
+    v2, i2 = segsum_topk_candidates(doc, con, k=10, window=t)
+    _assert_topk_close(v1, i1, v2, i2)
 
 
 def test_segsum_no_hits():
@@ -155,109 +150,40 @@ def test_max_df_ratio_drops_stopwords():
     assert int(i[0][0]) == 3  # only the distinctive term scores
 
 
-def test_packed_merge_matches_unpacked(rng):
-    """Packed-key merge (cbits=19 at a tiny corpus -> ~2e-6 resolution)
-    must agree with the two-array form within quantization."""
-    from tpurag.kernels.bm25_pallas import merge_segsum_topk
-
-    b, t, p = 6, 2, 64
-    w = t * p
-    doc = np.sort(rng.integers(0, 4000, (b, t, p)).astype(np.int32), axis=2)
-    con = rng.uniform(0.1, 3.0, (b, t, p)).astype(np.float32)
-    # Flip the odd term block so each 2P window is bitonic (the
-    # bm25_topk_fused input contract).
-    doc[:, 1] = doc[:, 1, ::-1]
-    con[:, 1] = con[:, 1, ::-1]
-    dj = jnp.asarray(doc.reshape(b, w))
-    cj = jnp.asarray(con.reshape(b, w))
-    v0, i0 = merge_segsum_topk(dj, cj, k=8, p=p, t=t, interpret=True)
-    cbits = 31 - (4096).bit_length()
-    v1, i1 = merge_segsum_topk(dj, cj, k=8, p=p, t=t, cbits=cbits,
-                               interpret=True)
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-    np.testing.assert_allclose(np.asarray(v0), np.asarray(v1),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_packed_merge_cbits12_parity(rng):
-    """CI gate at the MINIMUM packing resolution the policy allows:
-    cbits=12 (a ~512k-doc corpus). packed_merge defaults to True, so the
-    coarsest quantization the default path can ever run at must keep
-    top-k id parity with the exact two-array merge wherever exact
-    scores are separated by more than the quantization error bound
-    (t contributions, each off by <= scale/2 = max_row / (2*(2^12-1)))."""
-    from tpurag.index.inverted import packed_cbits
-    from tpurag.kernels.bm25_pallas import merge_segsum_topk
-
-    n_docs = 520_000                       # doc_bits = 19 -> cbits = 12
-    cbits = packed_cbits(n_docs)
-    assert cbits == 12
-    b, t, p, k = 8, 4, 64, 8
-    w = t * p
-    doc = np.sort(rng.integers(0, n_docs, (b, t, p)).astype(np.int32),
-                  axis=2)
-    con = rng.uniform(0.1, 3.0, (b, t, p)).astype(np.float32)
-    # Flip odd term blocks so each 2P window is bitonic (the
-    # bm25_topk_fused input contract).
-    for j in range(1, t, 2):
-        doc[:, j] = doc[:, j, ::-1]
-        con[:, j] = con[:, j, ::-1]
-    dj = jnp.asarray(doc.reshape(b, w))
-    cj = jnp.asarray(con.reshape(b, w))
-    v0, i0 = merge_segsum_topk(dj, cj, k=k, p=p, t=t, interpret=True)
-    v1, i1 = merge_segsum_topk(dj, cj, k=k, p=p, t=t, cbits=cbits,
-                               interpret=True)
-    v0, i0 = np.asarray(v0), np.asarray(i0)
-    v1, i1 = np.asarray(v1), np.asarray(i1)
-    qmax = (1 << cbits) - 1
-    bound = t * con.reshape(b, w).max(axis=1) / (2 * qmax)      # (B,)
-    np.testing.assert_allclose(v1, v0, atol=float(bound.max()) + 1e-5)
-    # Id parity at every rank whose exact score is separated from BOTH
-    # neighbours by > 2*bound (the last rank is skipped: it can swap
-    # with the unseen k+1-th candidate within quantization).
-    gap_lo = v0[:, :-1] - v0[:, 1:] > 2 * bound[:, None]        # (B, k-1)
-    stable = gap_lo.copy()
-    stable[:, 1:] &= gap_lo[:, :-1]
-    assert stable.sum() > b * 2, "fixture too tie-heavy to gate anything"
-    np.testing.assert_array_equal(i0[:, :-1][stable], i1[:, :-1][stable])
+@pytest.mark.parametrize("t", [1, 2, 4])
+def test_merge_segsum_full_matches_numpy(rng, t):
+    """Wide-class full rows: docs ascending, each doc's exact sum at its
+    segment-end lane, NEG_INF elsewhere; parked lanes stay parked."""
+    b, p = 5, 64
+    doc = np.full((b, t, p), 2**30, np.int32)
+    con = np.zeros((b, t, p), np.float32)
+    for r in range(b):
+        for j in range(t):
+            m = int(rng.integers(0, p))
+            doc[r, j, :m] = np.sort(rng.choice(300, m, replace=False))
+            con[r, j, :m] = rng.uniform(0.1, 2.0, m)
+    seg, doc_s = merge_segsum_full_xla(jnp.asarray(doc.reshape(b, t * p)),
+                                       jnp.asarray(con.reshape(b, t * p)),
+                                       p=p, t=t)
+    seg, doc_s = np.asarray(seg), np.asarray(doc_s)
+    assert (np.diff(doc_s, axis=1) >= 0).all()
+    for r in range(b):
+        want = {}
+        for d, c in zip(doc[r].ravel(), con[r].ravel()):
+            if d < 2**30:
+                want[int(d)] = want.get(int(d), 0.0) + float(c)
+        live = seg[r] > NEG_INF / 2
+        got = dict(zip(doc_s[r][live].tolist(), seg[r][live].tolist()))
+        assert got.keys() == want.keys()
+        np.testing.assert_allclose([got[d] for d in sorted(want)],
+                                   [want[d] for d in sorted(want)],
+                                   rtol=1e-5)
 
 
-def test_packed_cbits_policy():
-    from tpurag.index.inverted import packed_cbits
-
-    assert packed_cbits(1000) == 31 - 1001 .bit_length() >= 12
-    assert packed_cbits(100_000) == 14
-    assert packed_cbits(1_000_000) == 0   # < 12 bits left -> unpacked
-    assert packed_cbits(100_000, enabled=False) == 0
-
-
-def test_pallas_merge_width_gate():
-    """Vmem-safety predicate boundaries (v5e scoped-vmem limit 16MB):
-    W=16384 unpacked compiles at ~13.4M scoped; W=32768 fails at BOTH
-    layouts — 26.8M unpacked AND 19.7M packed (the 300k-corpus bench
-    point: packed_cbits(300k)=12 put a df~4096 class at W=32768 packed
-    and the Mosaic compile OOMed). Packing never moves the boundary."""
-    from tpurag.kernels.bm25_pallas import pallas_merge_ok
-
-    assert pallas_merge_ok(16384, 0)     # headline ladder max (t=8, p=2048)
-    assert pallas_merge_ok(16384, 12)
-    assert not pallas_merge_ok(32768, 0)  # the 1M-corpus OOM shape
-    assert not pallas_merge_ok(32768, 12)  # the 300k-corpus OOM shape
-    assert not pallas_merge_ok(65536, 12)
-
-
-def test_wide_class_routes_to_xla_tail(rng):
-    """A width class past PALLAS_MAX_MERGE_LANES must take the exact XLA
-    segsum tail even when the caller asks for Pallas: on CPU the fused
-    kernel at interpret=False would fail outright, so this running at
-    all (and matching use_pallas=False) proves the reroute. This is the
-    exact shape (t=8, p_max=4096, unpacked) whose Mosaic compile OOMed
-    scoped vmem on v5e at the 1M-doc bench point."""
-    from tpurag.index.inverted import _bucket_score
-    from tpurag.kernels.bm25_pallas import pallas_merge_ok
-
+def test_wide_class_bucket_score_matches_numpy(rng):
+    """A class at t=8, p_max=4096 (query terms with df > 2048) scores
+    through the same sort + segsum tail: exact against per-doc sums."""
     t, p_max, n_terms, g = 8, 4096, 4, 8
-    assert not pallas_merge_ok(t * p_max, 0)
     doc_mat = np.full((n_terms + 1, p_max), 2**30, np.int32)
     imp_mat = np.zeros((n_terms + 1, p_max), np.float32)
     for r in range(1, n_terms + 1):
@@ -269,10 +195,17 @@ def test_wide_class_routes_to_xla_tail(rng):
     bucketw = np.full((g, t), p_max, np.int32)
     rowid = rng.integers(1, n_terms + 1, (g, t)).astype(np.int32)
     idf = rng.uniform(0.5, 2.5, (g, t)).astype(np.float32)
-    args = (jnp.asarray(bucketw), jnp.asarray(rowid), jnp.asarray(idf),
-            mats)
-    kw = dict(k=10, p_max=p_max, t=t, widths=(p_max,), cbits=0)
-    v1, i1 = _bucket_score(*args, use_pallas=True, **kw)
-    v0, i0 = _bucket_score(*args, use_pallas=False, **kw)
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-    np.testing.assert_allclose(np.asarray(v0), np.asarray(v1), rtol=1e-5)
+    v, i = _bucket_score(jnp.asarray(bucketw), jnp.asarray(rowid),
+                         jnp.asarray(idf), mats, k=10, p_max=p_max, t=t,
+                         widths=(p_max,))
+    scores = np.zeros((g, 100_000), np.float64)
+    for r in range(g):
+        for j in range(t):
+            row = rowid[r, j]
+            live = doc_mat[row] < 2**30
+            np.add.at(scores[r], doc_mat[row][live],
+                      idf[r, j] * imp_mat[row][live].astype(np.float64))
+    ev = -np.sort(-scores, axis=1)[:, :10]
+    np.testing.assert_allclose(np.asarray(v), ev, rtol=1e-5)
+    got = np.take_along_axis(scores, np.asarray(i), axis=1)
+    np.testing.assert_allclose(got, ev, rtol=1e-5)

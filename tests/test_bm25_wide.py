@@ -1,7 +1,7 @@
 """Wide-class (huge-df) exact BM25: the narrow+wide additive split.
 
 Terms whose postings bucket exceeds BM25Config.wide_term_width score in
-per-width wide classes (kernels/bm25_pallas.merge_segsum_full) and the
+per-width wide classes (kernels/bm25.merge_segsum_full_xla) and the
 partial sums combine exactly (kernels/bm25_join.py). These tests force
 the split at tiny widths (wide_term_width=8) so CPU CI exercises every
 branch — mixed narrow+wide queries, wide-only queries, batches mixing
@@ -12,6 +12,7 @@ also gates the classed path (tests/test_bm25.py).
 import math
 
 import numpy as np
+import pytest
 
 import jax.numpy as jnp
 
@@ -120,19 +121,17 @@ def test_wide_split_off_matches_on():
         assert a == b
 
 
-def test_unpacked_and_packed_agree():
+@pytest.mark.parametrize("k", [3, 10])
+def test_several_wide_classes_in_one_batch(k):
+    """One batch holding every wide-class key — (64, 1), (32, 2),
+    (64, 2), (64, 4) — plus narrow-only queries: each wide class
+    combines against its own members' narrow rows."""
     docs = wide_corpus()
-    queries = ["common rare", "common half"]
-    a = build(docs, packed_merge=True)
-    b = build(docs, packed_merge=False)
-    sa, ia = a.search(queries, k=10)
-    sb, ib = b.search(queries, k=10)
-    np.testing.assert_allclose(sa, sb, rtol=2e-3, atol=1e-5)
-    for r in range(len(queries)):
-        cut = sa[r][-1] + 1e-4
-        xa = {int(i) for i, s in zip(ia[r], sa[r]) if s > cut}
-        xb = {int(i) for i, s in zip(ib[r], sb[r]) if s > cut}
-        assert xa == xb
+    idx = build(docs)
+    check_against_oracle(idx, docs,
+                         ["common", "half alt", "common half",
+                          "common half alt rare", "rare", "unique",
+                          "alt unique", "common filler3"], k=k)
 
 
 def test_delete_then_wide_search():
@@ -242,89 +241,3 @@ def test_combine_merge_matches_bsearch_form():
     distinct = np.abs(np.diff(vm, axis=1, prepend=np.inf)) > 1e-6
     np.testing.assert_array_equal(np.asarray(i_m)[distinct],
                                   np.asarray(i_b)[distinct])
-    # The tiled Pallas form (interpret oracle; wide row split into
-    # tiles narrower than the narrow row, exercising the per-tile
-    # top-k union + dedup fold) agrees too.
-    from tpurag.kernels.bm25_join import combine_narrow_wide_tiled
-
-    v_t, i_t = combine_narrow_wide_tiled(*args, k=k, interpret=True,
-                                         tile=64)
-    np.testing.assert_allclose(np.asarray(v_t), np.asarray(v_m),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(i_t)[distinct],
-                                  np.asarray(i_m)[distinct])
-
-
-def test_combine_pairs_batched_matches_per_class():
-    """The single-call batched combine (round 5) agrees with the
-    per-class XLA combine across MULTIPLE wide classes with members at
-    different narrow chunk counts — including all-parked narrow rows
-    (wide-only queries) and a narrow buffer wider than some members'
-    own narrow class width (the chunk-pruning case)."""
-    from tpurag.kernels.bm25_join import (combine_pairs_batched,
-                                          combine_narrow_wide)
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(29)
-    tile = 64
-    h, wn = 10, 160                  # buffer: 3 chunks of 64 (padded)
-    n_doc = np.full((h, wn), _BIG, np.int32)
-    n_val = np.full((h, wn), NEG_INF, np.float32)
-    nw = np.zeros(h, np.int64)       # per-member true narrow width
-    for hi in range(h):
-        if hi % 4 == 3:
-            continue                 # wide-only member: parked narrow
-        width = [40, 100, 160][hi % 3]
-        nw[hi] = width
-        docs = np.sort(rng.choice(800, size=width // 4, replace=False))
-        lanes = np.sort(np.repeat(docs, rng.integers(1, 3, len(docs)))
-                        [:width])
-        n_doc[hi, : len(lanes)] = lanes
-        ends = np.r_[lanes[:-1] != lanes[1:], True]
-        n_val[hi, : len(lanes)][ends] = (
-            rng.random(int(ends.sum())).astype(np.float32) + 0.1)
-    # Two wide classes over disjoint member sets, different widths.
-    jobs, truth_members = [], []
-    for (members, ww) in (([0, 3, 4, 7], 128), ([1, 2, 5, 6, 8, 9],
-                                                256)):
-        g = len(members)
-        w_doc = np.full((g, ww), _BIG, np.int32)
-        w_con = np.zeros((g, ww), np.float32)
-        for gi in range(g):
-            docs_w = np.sort(rng.choice(800, size=ww // 2,
-                                        replace=False))
-            lanes_w = np.sort(np.repeat(
-                docs_w, rng.integers(1, 3, len(docs_w)))[:ww])
-            w_doc[gi, : len(lanes_w)] = lanes_w
-            ends_w = np.r_[lanes_w[:-1] != lanes_w[1:], True]
-            w_con[gi, : len(lanes_w)][ends_w] = (
-                rng.random(int(ends_w.sum())).astype(np.float32) + 0.1)
-        nc_groups = {}
-        for j, hi in enumerate(members):
-            nc = max(1, -(-int(nw[hi]) // tile))
-            nc_groups.setdefault(nc, []).append(j)
-        jobs.append((jnp.asarray(w_con), jnp.asarray(w_doc),
-                     jnp.asarray(np.asarray(members, np.int32)),
-                     nc_groups))
-        truth_members.append(members)
-    k = 6
-    v_b, i_b = combine_pairs_batched(
-        jnp.asarray(n_val), jnp.asarray(n_doc), jobs, h=h, k=k,
-        window=5, tile=tile, interpret=True)
-    v_b, i_b = np.asarray(v_b), np.asarray(i_b)
-    # Oracle: per-member XLA combine at full buffer width.
-    for (w_con, w_doc, sel, _), members in zip(jobs, truth_members):
-        wseg = np.where(np.asarray(w_con) > 0.0, np.asarray(w_con),
-                        NEG_INF).astype(np.float32)
-        v_o, i_o = combine_narrow_wide(
-            jnp.asarray(n_val)[np.asarray(members)],
-            jnp.asarray(n_doc)[np.asarray(members)],
-            jnp.asarray(wseg), jnp.asarray(np.asarray(w_doc)),
-            k=k, window=5)
-        v_o, i_o = np.asarray(v_o), np.asarray(i_o)
-        for gi, hi in enumerate(members):
-            np.testing.assert_allclose(v_b[hi], v_o[gi], rtol=1e-5,
-                                       atol=1e-5)
-            distinct = np.abs(np.diff(v_o[gi], prepend=np.inf)) > 1e-6
-            np.testing.assert_array_equal(i_b[hi][distinct],
-                                          i_o[gi][distinct])

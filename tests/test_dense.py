@@ -3,8 +3,9 @@ import numpy as np
 import pytest
 
 from tpurag.index.dense import DenseIndex, l2_normalize
-from tpurag.kernels.dense import (dense_topk_pallas, dense_topk_pallas_co,
-                                  dense_topk_xla)
+from tpurag.kernels import dense as dense_mod
+from tpurag.kernels.dense import (TRITON_MAX_K, dense_route,
+                                  dense_topk_triton, dense_topk_xla)
 from tpurag.kernels.runtime import NEG_INF
 
 
@@ -41,65 +42,12 @@ def test_dense_topk_xla_respects_n_valid(rng):
     np.testing.assert_allclose(np.asarray(vals), ev, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,d,b,k", [(700, 48, 3, 8), (900, 128, 9, 16)])
-def test_dense_topk_pallas_matches_xla(rng, n, d, b, k):
+def _bf16_data(rng, n, d, b):
     q, emb = make_data(rng, n, d, b)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n), k)
-    pv, pi = dense_topk_pallas(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n),
-                               k, tile_b=8, tile_n=256, interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+    return jnp.asarray(q), jnp.asarray(emb, jnp.bfloat16)
 
 
-@pytest.mark.parametrize("chunk_n", [64, 128])
-def test_dense_topk_pallas_chunked_matches_xla(rng, chunk_n):
-    # chunk_n < tile_n: the in-tile column-chunk scoring path.
-    n, d, b, k = 700, 48, 9, 8
-    q, emb = make_data(rng, n, d, b)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n), k)
-    pv, pi = dense_topk_pallas(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n),
-                               k, tile_b=8, tile_n=256, chunk_n=chunk_n,
-                               interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
-
-
-def test_dense_topk_pallas_k_not_pow2(rng):
-    # k=5 -> scratch padded to 8 rows: sentinel rows must never surface.
-    q, emb = make_data(rng, n=400, d=32, b=3)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(400), 5)
-    pv, pi = dense_topk_pallas(jnp.asarray(q), jnp.asarray(emb), jnp.int32(400),
-                               5, tile_b=8, tile_n=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
-
-
-def test_dense_topk_pallas_n_valid_and_padding(rng):
-    # n not a multiple of the tile, n_valid below n: padding + masking paths.
-    q, emb = make_data(rng, n=333, d=40, b=2)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(300), 5)
-    pv, pi = dense_topk_pallas(jnp.asarray(q), jnp.asarray(emb), jnp.int32(300),
-                               5, tile_b=8, tile_n=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
-
-
-@pytest.mark.parametrize(
-    "b,n,d,k,nv",
-    [
-        (7, 300, 64, 8, 300),     # b below one tile_b, odd shapes
-        (16, 5000, 128, 8, 4777),  # n_valid mid-tile masking
-        (130, 2500, 96, 5, 2500),  # multi query-tile, k not pow2
-        (3, 10, 32, 8, 4),         # k > n_valid: sentinel -1 ids
-        (9, 257, 130, 3, 200),     # d not lane-aligned, n not tile-aligned
-    ],
-)
-def test_dense_topk_corpus_outer_matches_xla(rng, b, n, d, k, nv):
-    q, emb = make_data(rng, n, d, b)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(nv), k)
-    pv, pi = dense_topk_pallas_co(jnp.asarray(q), jnp.asarray(emb),
-                                  jnp.int32(nv), k, tile_b=8, tile_n=256,
-                                  interpret=True)
+def _assert_same_topk(pv, pi, xv, xi):
     xv, xi, pv, pi = map(np.asarray, (xv, xi, pv, pi))
     valid = xv > NEG_INF / 2
     np.testing.assert_array_equal(pi[valid], xi[valid])
@@ -107,37 +55,89 @@ def test_dense_topk_corpus_outer_matches_xla(rng, b, n, d, k, nv):
     np.testing.assert_allclose(pv[valid], xv[valid], atol=1e-5)
 
 
-def test_dense_topk_corpus_outer_chunked(rng):
-    # chunk_n < tile_n inside the corpus-outer grid order.
-    b, n, d, k = 12, 1200, 64, 8
-    q, emb = make_data(rng, n, d, b)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n), k)
-    pv, pi = dense_topk_pallas_co(jnp.asarray(q), jnp.asarray(emb),
-                                  jnp.int32(n), k, tile_b=8, tile_n=256,
-                                  chunk_n=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+@pytest.mark.parametrize(
+    "b,n,d,k,nv,splits",
+    [
+        (3, 700, 48, 8, 700, None),     # one query tile, default splits
+        (9, 900, 128, 16, 900, None),   # k at the kernel's cap
+        (70, 2048, 128, 5, 1500, 3),    # two query tiles, k not pow2
+        (7, 300, 64, 8, 300, 2),        # n not a tile multiple: overlap
+        (16, 5000, 128, 8, 4777, None),  # n_valid mid-tile masking
+        (130, 2500, 96, 5, 2500, 4),    # three query tiles, d % 64 != 0
+        (3, 10, 32, 8, 4, 1),           # k > n_valid: sentinel -1 ids
+        (9, 257, 130, 3, 200, 2),       # odd d and n, splits past n_valid
+    ],
+)
+def test_dense_topk_triton_matches_xla(rng, b, n, d, k, nv, splits):
+    q, emb = _bf16_data(rng, n, d, b)
+    xv, xi = dense_topk_xla(q, emb, jnp.int32(nv), k)
+    pv, pi = dense_topk_triton(q, emb, jnp.int32(nv), k, splits=splits,
+                               interpret=True)
+    _assert_same_topk(pv, pi, xv, xi)
 
 
-@pytest.mark.parametrize("fn", [dense_topk_pallas, dense_topk_pallas_co])
-def test_dense_topk_q4_extraction_path(rng, fn):
-    # chunk_n >= 512 routes extraction through select_topk_q4 (the
-    # quarter-split tournament): exercise it against the oracle.
-    b, n, d, k = 9, 1500, 64, 8
-    q, emb = make_data(rng, n, d, b)
-    xv, xi = dense_topk_xla(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n), k)
-    pv, pi = fn(jnp.asarray(q), jnp.asarray(emb), jnp.int32(n),
-                k, tile_b=8, tile_n=512, chunk_n=512, interpret=True)
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
+def test_dense_topk_triton_ties_prefer_smaller_id(rng):
+    # Every row duplicated: each score appears twice and the top-k must
+    # keep the smaller id of each pair, as lax.top_k does.
+    q, emb = make_data(rng, n=200, d=64, b=4)
+    emb = np.concatenate([emb, emb])
+    qj, ej = jnp.asarray(q), jnp.asarray(emb, jnp.bfloat16)
+    xv, xi = dense_topk_xla(qj, ej, jnp.int32(400), 8)
+    pv, pi = dense_topk_triton(qj, ej, jnp.int32(400), 8, splits=3,
+                               interpret=True)
+    _assert_same_topk(pv, pi, xv, xi)
 
 
-def test_dense_topk_corpus_outer_batch_cap(rng):
-    q, emb = make_data(rng, n=256, d=32, b=8)
-    with pytest.raises(ValueError, match="caps batch"):
-        dense_topk_pallas_co(jnp.asarray(np.repeat(q, 1024, axis=0)),
-                             jnp.asarray(emb), jnp.int32(256), 8,
-                             tile_b=8, interpret=True)
+def test_dense_topk_triton_ignores_rows_past_n_valid(rng):
+    # Rows past n_valid hold NaN: no split may let them into the result.
+    q, emb = make_data(rng, n=1024, d=64, b=5)
+    emb[600:] = np.nan
+    qj, ej = jnp.asarray(q), jnp.asarray(emb, jnp.bfloat16)
+    xv, xi = dense_topk_xla(qj, ej[:600], jnp.int32(600), 8)
+    pv, pi = dense_topk_triton(qj, ej, jnp.int32(600), 8, splits=4,
+                               interpret=True)
+    _assert_same_topk(pv, pi, xv, xi)
+
+
+def test_dense_topk_triton_rejects_large_k(rng):
+    q, emb = _bf16_data(rng, 256, 32, 2)
+    with pytest.raises(ValueError, match="dense_topk_xla"):
+        dense_topk_triton(q, emb, jnp.int32(256), TRITON_MAX_K + 1,
+                          interpret=True)
+
+
+@pytest.mark.parametrize(
+    "platform_name,dtype,k,route",
+    [
+        ("gpu", jnp.bfloat16, 8, "triton"),
+        ("gpu", jnp.bfloat16, TRITON_MAX_K, "triton"),
+        ("gpu", jnp.bfloat16, TRITON_MAX_K + 1, "xla"),   # overfetch paths
+        ("gpu", jnp.float32, 8, "xla"),                   # fp32 corpora
+        ("cpu", jnp.bfloat16, 8, "xla"),
+    ],
+)
+def test_dense_route(platform_name, dtype, k, route):
+    assert dense_route(platform_name, dtype, k) == route
+
+
+@pytest.mark.parametrize("k,expect_kernel", [(8, True), (32, False)])
+def test_dense_topk_gpu_dispatch_never_interprets(rng, monkeypatch, k,
+                                                  expect_kernel):
+    """On the GPU, dense_topk compiles the kernel (no interpret flag ever
+    reaches it) and sends k > TRITON_MAX_K to XLA."""
+    calls = []
+
+    def spy(queries, emb, n_valid, kk, **kw):
+        calls.append(kw)
+        return dense_topk_xla(queries, emb, n_valid, kk)
+
+    monkeypatch.setattr(dense_mod, "platform", lambda: "gpu")
+    monkeypatch.setattr(dense_mod, "dense_topk_triton", spy)
+    q, emb = _bf16_data(rng, 300, 32, 3)
+    v, i = dense_mod.dense_topk(q, emb, jnp.int32(300), k)
+    assert i.shape == (3, k)
+    assert bool(calls) == expect_kernel
+    assert all(not kw.get("interpret", False) for kw in calls)
 
 
 class TestDenseIndex:
@@ -192,3 +192,19 @@ class TestDenseIndex:
         v = rng.standard_normal((4, 8)).astype(np.float32) * 100
         out = np.asarray(l2_normalize(v))
         np.testing.assert_allclose(np.linalg.norm(out, axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,k", [(768, 100_352, 8), (5, 4096, 16)])
+def test_dense_topk_triton_compiled_matches_xla(rng, b, n, k):
+    """The kernel as the card compiles it (no interpret mode)."""
+    q, emb = _bf16_data(rng, n, 1024, b)
+    xv, xi = dense_topk_xla(q, emb, jnp.int32(n - 3), k)
+    pv, pi = dense_topk_triton(q, emb, jnp.int32(n - 3), k)
+    xv, xi, pv, pi = map(np.asarray, (xv, xi, pv, pi))
+    np.testing.assert_allclose(pv, xv, atol=1e-5)
+    # ids agree except where two scores sit within fp32 summation noise
+    sep = np.abs(np.diff(xv, axis=1)) > 1e-5
+    gap = (np.pad(sep, ((0, 0), (1, 0)), constant_values=True)
+           & np.pad(sep, ((0, 0), (0, 1)), constant_values=True))
+    np.testing.assert_array_equal(pi[gap], xi[gap])

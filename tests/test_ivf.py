@@ -117,41 +117,43 @@ def test_small_corpus():
     assert int(np.asarray(si)[0, 0]) == 3
 
 
-def test_pallas_probe_scan_matches_xla(corpus, ivf):
-    from tpurag.index.ivf import _ivf_search
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
+def np_probe_scan(ivf, q, k, nprobe):
+    """NumPy reference of the probe scan over the packed layout: top
+    nprobe centroids, every row of those clusters scored, top-k by
+    (score desc, packed row asc), mapped to original ids."""
+    emb = np.asarray(ivf.emb_ivf, np.float64)
+    table = np.asarray(ivf.row_table)
+    row_ids = np.asarray(ivf.row_ids)
+    cs = q @ np.asarray(ivf.centroids).T
+    out_v, out_i = [], []
+    for b in range(q.shape[0]):
+        probe = np.argsort(-cs[b], kind="stable")[:nprobe]
+        rows = np.concatenate([table[c][table[c] >= 0] for c in probe])
+        sc = emb[rows] @ q[b].astype(np.float64)
+        order = np.lexsort((rows, -sc))[:k]
+        out_v.append(sc[order])
+        out_i.append(row_ids[rows[order]])
+    return np.stack(out_v), np.stack(out_i)
 
+
+def test_probe_scan_matches_numpy(corpus, ivf):
     rng = np.random.default_rng(3)
     q = np.asarray(l2_normalize(
         rng.standard_normal((4, 48)).astype(np.float32)))
-    c_pad = int(round_up(ivf.c_max, 8))
-    pv, pi = ivf_scan_pallas(
-        jnp.asarray(q), ivf.centroids, ivf.emb_ivf, ivf.cluster_starts,
-        ivf.cluster_counts, ivf.row_ids, k=10, nprobe=8, c_pad=c_pad,
-        interpret=True)
-    xv, xi = _ivf_search(jnp.asarray(q), ivf.centroids, ivf.emb_ivf,
-                         ivf.row_table, ivf.row_ids, k=10, nprobe=8,
-                         c_max=ivf.c_max)
-    np.testing.assert_array_equal(np.asarray(pi), np.asarray(xi))
-    np.testing.assert_allclose(np.asarray(pv), np.asarray(xv), atol=1e-5)
+    xv, xi = ivf.search(jnp.asarray(q), k=10, nprobe=8)
+    ev, ei = np_probe_scan(ivf, q, 10, 8)
+    np.testing.assert_array_equal(np.asarray(xi), ei)
+    np.testing.assert_allclose(np.asarray(xv), ev, atol=1e-5)
 
 
-def test_pallas_probe_scan_empty_and_small_clusters():
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
-
+def test_full_probe_small_clusters():
     rng = np.random.default_rng(5)
     data = rng.standard_normal((40, 32)).astype(np.float32)
     ivf = IVFIndex(IVFConfig(n_lists=16, n_probe=16, kmeans_iters=3)).build(
         data, dtype=jnp.float32)
     q = np.asarray(l2_normalize(
         rng.standard_normal((2, 32)).astype(np.float32)))
-    c_pad = int(round_up(ivf.c_max, 8))
-    pv, pi = ivf_scan_pallas(
-        jnp.asarray(q), ivf.centroids, ivf.emb_ivf, ivf.cluster_starts,
-        ivf.cluster_counts, ivf.row_ids, k=10, nprobe=ivf.n_lists,
-        c_pad=c_pad, interpret=True)
+    _, pi = ivf.search(jnp.asarray(q), k=10, nprobe=ivf.n_lists)
     # Exhaustive probe of a 40-row corpus -> top-10 == exact top-10.
     _, ei = exact(data, jnp.asarray(q), 10)
     np.testing.assert_array_equal(np.sort(np.asarray(pi)),
@@ -159,8 +161,7 @@ def test_pallas_probe_scan_empty_and_small_clusters():
 
 
 def test_quant_build_scan_recall(corpus):
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
+    from tpurag.index.ivf import _ivf_search
 
     ivf = IVFIndex(IVFConfig(n_lists=64, n_probe=8, kmeans_iters=5)).build(
         corpus, dtype=jnp.float32, quant=True)
@@ -169,11 +170,11 @@ def test_quant_build_scan_recall(corpus):
     rng = np.random.default_rng(9)
     q = np.asarray(l2_normalize(
         rng.standard_normal((4, 48)).astype(np.float32)))
-    c_pad = int(round_up(ivf.c_max, 8))
-    qv, qi = ivf_scan_pallas(
-        jnp.asarray(q), ivf.centroids, ivf.emb_ivf_q8, ivf.cluster_starts,
-        ivf.cluster_counts, ivf.row_ids, k=10, nprobe=ivf.n_lists,
-        c_pad=c_pad, cluster_scales=ivf.cluster_scales, interpret=True)
+    # int8 scan without rescore (a quant-only layout's search).
+    qv, qi = _ivf_search(jnp.asarray(q), ivf.centroids, ivf.emb_ivf_q8,
+                         ivf.row_table, ivf.row_ids, k=10,
+                         nprobe=ivf.n_lists, c_max=ivf.c_max,
+                         cluster_scales=ivf.cluster_scales)
     # Full probe == exhaustive: int8 ranking must recover >= 0.9 of the
     # exact top-10, and surviving scores must be near the exact cosines.
     _, ei = exact(corpus, jnp.asarray(q), 10)
@@ -183,8 +184,7 @@ def test_quant_build_scan_recall(corpus):
                for i in range(4))
     assert hits / 40 >= 0.9, hits / 40
     emb = np.asarray(l2_normalize(corpus))
-    qn = q
-    exact_scores = np.take_along_axis(qn @ emb.T, qi, axis=1)
+    exact_scores = np.take_along_axis(q @ emb.T, qi, axis=1)
     np.testing.assert_allclose(np.asarray(qv), exact_scores, atol=0.03)
 
 
@@ -201,20 +201,13 @@ def test_quant_save_load(corpus, tmp_path):
 
 
 def test_quant_scan_with_rescore_matches_float(corpus):
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
-
     ivf = IVFIndex(IVFConfig(n_lists=64, n_probe=8, kmeans_iters=5)).build(
         corpus, dtype=jnp.float32, quant=True)
     rng = np.random.default_rng(11)
     q = np.asarray(l2_normalize(
         rng.standard_normal((4, 48)).astype(np.float32)))
-    c_pad = int(round_up(ivf.c_max, 8))
-    qv, qi = ivf_scan_pallas(
-        jnp.asarray(q), ivf.centroids, ivf.emb_ivf_q8, ivf.cluster_starts,
-        ivf.cluster_counts, ivf.row_ids, k=10, nprobe=ivf.n_lists,
-        c_pad=c_pad, cluster_scales=ivf.cluster_scales,
-        rescore_emb=ivf.emb_ivf, interpret=True)
+    # A quant build's search scans int8 and rescores against emb_ivf.
+    qv, qi = ivf.search(jnp.asarray(q), k=10, nprobe=ivf.n_lists)
     _, ei = exact(corpus, jnp.asarray(q), 10)
     ei, qi = np.asarray(ei), np.asarray(qi)
     hits = sum(len(set(qi[i].tolist()) & set(ei[i].tolist()))
@@ -226,37 +219,38 @@ def test_quant_scan_with_rescore_matches_float(corpus):
     np.testing.assert_allclose(np.asarray(qv), exp, atol=1e-4)
 
 
-def test_probe_axis_chunking_is_exact(corpus, ivf, monkeypatch):
-    """Large probe budgets chunk the (B, n_probe) SMEM prefetch tables
-    (kernels/ivf_scan.py:_PREFETCH_CHUNK_BYTES); the per-chunk top-k
-    merge must be exact (a cluster lives in at most one chunk). Forces
-    chunking on a small case by shrinking the byte cap and calls the
-    un-jitted wrapper directly (the jitted ivf_scan_pallas would hit
-    its trace cache and never re-read the cap)."""
-    from tpurag.kernels import ivf_scan
-    from tpurag.kernels.runtime import round_up
+def test_int8_scan_matches_dequantized_numpy(corpus):
+    """The int8 probe scan (no rescore) ranks exactly as a NumPy scan of
+    the dequantized rows against the row-quantized query does."""
+    from tpurag.index.ivf import _ivf_search
+    from tpurag.kernels.quant import quantize_rows
 
-    rng = np.random.default_rng(17)
-    q = jnp.asarray(np.asarray(l2_normalize(
-        rng.standard_normal((4, 48)).astype(np.float32))))
-    c_pad = int(round_up(ivf.c_max, 8))
-    cscores = jnp.asarray(q) @ ivf.centroids.T
-    import jax
-
-    _, probe = jax.lax.top_k(cscores, ivf.n_lists)
-    starts_sel = ivf.cluster_starts[probe].astype(jnp.int32)
-    counts_sel = ivf.cluster_counts[probe].astype(jnp.int32)
-    ref_v, ref_i = ivf_scan.ivf_probe_topk_pallas(
-        q, ivf.emb_ivf, starts_sel, counts_sel, k=10,
-        n_probe=ivf.n_lists, c_pad=c_pad, interpret=True)
-    # 4 queries -> bp=8 -> cap 128 bytes = 4 probes/chunk (16 chunks).
-    monkeypatch.setattr(ivf_scan, "_PREFETCH_CHUNK_BYTES", 128)
-    chv, chi = ivf_scan.ivf_probe_topk_pallas(
-        q, ivf.emb_ivf, starts_sel, counts_sel, k=10,
-        n_probe=ivf.n_lists, c_pad=c_pad, interpret=True)
-    np.testing.assert_array_equal(np.asarray(chi), np.asarray(ref_i))
-    np.testing.assert_allclose(np.asarray(chv), np.asarray(ref_v),
-                               atol=1e-5)
+    ivf = IVFIndex(IVFConfig(n_lists=32, n_probe=8, kmeans_iters=3)).build(
+        corpus, dtype=jnp.float32, quant=True)
+    rng = np.random.default_rng(13)
+    q = np.asarray(l2_normalize(
+        rng.standard_normal((5, 48)).astype(np.float32)))
+    v, i = _ivf_search(jnp.asarray(q), ivf.centroids, ivf.emb_ivf_q8,
+                       ivf.row_table, ivf.row_ids, k=10, nprobe=6,
+                       c_max=ivf.c_max, cluster_scales=ivf.cluster_scales)
+    q8, qs = (np.asarray(x) for x in quantize_rows(jnp.asarray(q)))
+    e8 = np.asarray(ivf.emb_ivf_q8)
+    table = np.asarray(ivf.row_table)
+    # Probes are chosen with the float query, rows scored in int8.
+    cs = q @ np.asarray(ivf.centroids).T
+    ev2, ei2 = [], []
+    for b in range(5):
+        probe = np.argsort(-cs[b], kind="stable")[:6]
+        rows = np.concatenate([table[c][table[c] >= 0] for c in probe])
+        cl = np.concatenate([np.full((table[c] >= 0).sum(), c)
+                             for c in probe])
+        sc = (e8[rows].astype(np.float64) @ q8[b].astype(np.float64)
+              * np.asarray(ivf.cluster_scales, np.float64)[cl] * qs[b])
+        order = np.lexsort((rows, -sc))[:10]
+        ev2.append(sc[order])
+        ei2.append(np.asarray(ivf.row_ids)[rows[order]])
+    np.testing.assert_array_equal(np.asarray(i), np.stack(ei2))
+    np.testing.assert_allclose(np.asarray(v), np.stack(ev2), rtol=1e-5)
 
 
 def test_split_oversized_caps_cmax_and_keeps_recall():
@@ -292,9 +286,9 @@ def test_split_oversized_caps_cmax_and_keeps_recall():
 
 
 @pytest.fixture(scope="module")
-def aligned_ivf():
-    """A build big enough for the IVF_ALIGN (pipelined-kernel) layout:
-    n >= 2 * 128 * n_lists -> mean cluster >= 256 rows."""
+def big_ivf():
+    """Few large clusters (mean 512 rows): the shape of a production
+    build, where one probe gathers hundreds of rows."""
     rng = np.random.default_rng(31)
     centers = rng.standard_normal((8, 48)).astype(np.float32) * 3
     data = np.concatenate([
@@ -306,103 +300,123 @@ def aligned_ivf():
     return data, ivf
 
 
-def test_aligned_build_uses_128_starts(aligned_ivf):
-    _, ivf = aligned_ivf
-    assert ivf.align == 128
-    starts = np.asarray(ivf.cluster_starts)
-    assert (starts % 128 == 0).all()
-    assert int(ivf.emb_ivf.shape[0]) % 128 == 0
+def test_pack_layout_lists_every_row_once():
+    from tpurag.index.ivf import pack_layout
+
+    assign = np.array([2, 0, 2, 1, 0, 2, 2], np.int32)
+    counts = np.bincount(assign, minlength=4)          # cluster 3 empty
+    order, table, c_max = pack_layout(assign, counts)
+    assert c_max == 8 and table.shape == (4, 8)
+    np.testing.assert_array_equal(assign[order], np.sort(assign))
+    live = table[table >= 0]
+    np.testing.assert_array_equal(np.sort(live), np.arange(7))
+    for c in range(4):
+        rows = table[c][table[c] >= 0]
+        assert (assign[order[rows]] == c).all() and len(rows) == counts[c]
+    assert (table[3] == -1).all()
 
 
-def test_pipelined_probe_scan_matches_unpipelined(aligned_ivf):
-    """The scalar-prefetch-BlockSpec (pipelined) kernel must return
-    exactly what the manual-DMA kernel returns on an aligned build."""
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
-
-    data, ivf = aligned_ivf
+def test_full_probe_equals_exact_large_clusters(big_ivf):
+    data, ivf = big_ivf
     rng = np.random.default_rng(37)
     q = jnp.asarray(np.asarray(l2_normalize(
         rng.standard_normal((4, 48)).astype(np.float32))))
-    c_pad = int(round_up(ivf.c_max, 8))
-    args = (q, ivf.centroids, ivf.emb_ivf, ivf.cluster_starts,
-            ivf.cluster_counts, ivf.row_ids)
-    kw = dict(k=10, nprobe=ivf.n_lists, c_pad=c_pad, interpret=True)
-    v1, i1 = ivf_scan_pallas(*args, **kw)
-    v2, i2 = ivf_scan_pallas(*args, pipelined=True, **kw)
-    np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-    np.testing.assert_allclose(np.asarray(v2), np.asarray(v1), atol=1e-5)
-    # And both match exhaustive exact search at full probe.
-    _, ei = exact(data, q, 10)
-    np.testing.assert_array_equal(np.sort(np.asarray(i2)),
-                                  np.sort(np.asarray(ei)))
+    v, i = ivf.search(q, k=10, nprobe=ivf.n_lists)
+    ev, ei = exact(data, q, 10)
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(ei))
+    np.testing.assert_allclose(np.asarray(v), np.asarray(ev), atol=1e-5)
 
 
-def test_pipelined_quant_scan_matches(aligned_ivf):
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
-
-    data, _ = aligned_ivf
+def test_quant_full_probe_with_rescore_equals_exact(big_ivf):
+    data, _ = big_ivf
     ivf = IVFIndex(IVFConfig(n_lists=8, n_probe=4, kmeans_iters=4)).build(
         data, dtype=jnp.float32, quant=True)
-    assert ivf.align == 128
     rng = np.random.default_rng(41)
     q = jnp.asarray(np.asarray(l2_normalize(
         rng.standard_normal((4, 48)).astype(np.float32))))
-    c_pad = int(round_up(ivf.c_max, 8))
-    args = (q, ivf.centroids, ivf.emb_ivf_q8, ivf.cluster_starts,
-            ivf.cluster_counts, ivf.row_ids)
-    kw = dict(k=10, nprobe=ivf.n_lists, c_pad=c_pad,
-              cluster_scales=ivf.cluster_scales,
-              rescore_emb=ivf.emb_ivf, interpret=True)
-    v1, i1 = ivf_scan_pallas(*args, **kw)
-    v2, i2 = ivf_scan_pallas(*args, pipelined=True, **kw)
-    np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-    np.testing.assert_allclose(np.asarray(v2), np.asarray(v1), atol=1e-5)
+    v, i = ivf.search(q, k=10, nprobe=ivf.n_lists)
+    ev, ei = exact(data, q, 10)
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(ei))
+    np.testing.assert_allclose(np.asarray(v), np.asarray(ev), atol=1e-5)
 
 
-def test_pipelined_sub_blocks_matches(aligned_ivf):
-    """blks>1 (wider per-step fetch) must be bit-identical to blks=1."""
-    import jax
-
-    from tpurag.kernels.ivf_scan import ivf_probe_topk_pallas
-    from tpurag.kernels.runtime import round_up
-
-    _, ivf = aligned_ivf
+def test_quant_only_streaming_layout_searches_int8(big_ivf):
+    """keep_rescore=False keeps ONLY the int8 layout on the device:
+    search scans it directly (no float copy is made) at recall >= 0.9."""
+    data, _ = big_ivf
+    ivf = IVFIndex(IVFConfig(n_lists=8, n_probe=8, kmeans_iters=3)
+                   ).build_streaming(lambda lo, hi: data[lo:hi], len(data),
+                                     dtype=jnp.float32, quant=True,
+                                     block=1024, keep_rescore=False)
+    assert ivf.emb_ivf is None and ivf.emb_ivf_q8.dtype == jnp.int8
     rng = np.random.default_rng(43)
     q = jnp.asarray(np.asarray(l2_normalize(
-        rng.standard_normal((4, 48)).astype(np.float32))))
-    cscores = q @ ivf.centroids.T
-    _, probe = jax.lax.top_k(cscores, ivf.n_lists)
-    starts_sel = ivf.cluster_starts[probe].astype(jnp.int32)
-    counts_sel = ivf.cluster_counts[probe].astype(jnp.int32)
-    c_pad = int(round_up(ivf.c_max, 8))
-    kw = dict(k=10, n_probe=ivf.n_lists, c_pad=c_pad, interpret=True,
-              pipelined=True)
-    v1, i1 = ivf_probe_topk_pallas(q, ivf.emb_ivf, starts_sel,
-                                   counts_sel, sub_blocks=1, **kw)
-    for blks in (2, 4):
-        v2, i2 = ivf_probe_topk_pallas(q, ivf.emb_ivf, starts_sel,
-                                       counts_sel, sub_blocks=blks, **kw)
-        np.testing.assert_array_equal(np.asarray(i2), np.asarray(i1))
-        np.testing.assert_allclose(np.asarray(v2), np.asarray(v1),
-                                   atol=1e-5)
+        rng.standard_normal((8, 48)).astype(np.float32))))
+    _, i = ivf.search(q, k=10, nprobe=ivf.n_lists)
+    _, ei = exact(data, q, 10)
+    i, ei = np.asarray(i), np.asarray(ei)
+    recall = np.mean([len(set(i[r]) & set(ei[r])) / 10 for r in range(8)])
+    assert recall >= 0.9, recall
+    assert not any(np.asarray(x).dtype == np.float32
+                   and np.asarray(x).shape[0] == len(data) + 1
+                   for x in vars(ivf).values() if hasattr(x, "shape"))
 
 
-def test_build_tail_covers_scan_extent(corpus, ivf, aligned_ivf):
-    """Every build must over-allocate enough tail rows that the probe
-    kernels' fixed-size fetch of the LAST cluster stays in bounds
-    (kernels/ivf_scan.py:IVF_SCAN_EXTENT). Guards the OOB regression
-    class that interpret-mode tests cannot catch (clamped slices)."""
-    from tpurag.kernels.ivf_scan import IVF_SCAN_EXTENT
-    from tpurag.kernels.runtime import round_up
+def test_quant_scan_working_set_stays_below_a_float_copy(corpus):
+    """The compiled int8 search holds a working set bounded by
+    B x Cmax rows per probe: its temporaries stay well under the f32
+    copy of the layout that a whole-corpus dequantize would need."""
+    from tpurag.index.ivf import _ivf_search
 
-    for idx in (ivf, aligned_ivf[1]):
-        starts = np.asarray(idx.cluster_starts)
-        need = int(starts.max()) + int(round_up(idx.c_max,
-                                                IVF_SCAN_EXTENT))
-        assert int(idx.emb_ivf.shape[0]) >= need, (
-            idx.align, idx.emb_ivf.shape[0], need)
+    ivf = IVFIndex(IVFConfig(n_lists=64, n_probe=4, kmeans_iters=3)).build(
+        corpus, dtype=jnp.float32, quant=True)
+    q = jnp.asarray(np.asarray(l2_normalize(corpus[:2])))
+    compiled = _ivf_search.lower(
+        q, ivf.centroids, ivf.emb_ivf_q8, ivf.row_table, ivf.row_ids, k=10,
+        nprobe=4, c_max=ivf.c_max, cluster_scales=ivf.cluster_scales
+    ).compile()
+    temp = compiled.memory_analysis().temp_size_in_bytes
+    f32_copy = ivf.emb_ivf_q8.size * 4
+    assert temp < f32_copy / 4, (temp, f32_copy)
+
+
+def test_legacy_aligned_save_loads(big_ivf, tmp_path):
+    """Saves whose clusters start on aligned rows (padding rows between
+    clusters, cluster_starts/cluster_counts arrays, align in meta) load
+    and search exactly: row_table lists only live rows."""
+    import json
+
+    data, ivf = big_ivf
+    table = np.asarray(ivf.row_table)
+    emb = np.asarray(ivf.emb_ivf)
+    row_ids = np.asarray(ivf.row_ids)
+    align, pos = 128, 0
+    new_table = np.full_like(table, -1)
+    starts, counts = [], []
+    rows_out, ids_out = [], []
+    for c in range(ivf.n_lists):
+        live = table[c][table[c] >= 0]
+        m = len(live)
+        starts.append(pos)
+        counts.append(m)
+        new_table[c, :m] = np.arange(pos, pos + m)
+        pad = -m % align
+        rows_out += [emb[live], np.zeros((pad, emb.shape[1]), np.float32)]
+        ids_out += [row_ids[live], np.full(pad, -1, np.int32)]
+        pos += m + pad
+    np.savez(tmp_path / "old", centroids=np.asarray(ivf.centroids),
+             emb=np.concatenate(rows_out), row_table=new_table,
+             row_ids=np.concatenate(ids_out).astype(np.int32),
+             cluster_starts=np.asarray(starts, np.int32),
+             cluster_counts=np.asarray(counts, np.int32),
+             meta=json.dumps({"n": ivf.n, "c_max": ivf.c_max,
+                              "n_lists": ivf.n_lists, "align": align,
+                              "emb_dtype": "float32", "quant": False}))
+    old = IVFIndex.load(tmp_path / "old", dtype=jnp.float32)
+    q = jnp.asarray(np.asarray(l2_normalize(data[:3])))
+    np.testing.assert_array_equal(
+        np.asarray(old.search(q, k=10, nprobe=ivf.n_lists)[1]),
+        np.asarray(ivf.search(q, k=10, nprobe=ivf.n_lists)[1]))
 
 
 def test_save_load_bf16_storage_dtype(corpus, tmp_path):
@@ -477,35 +491,37 @@ def test_kb_ivf_auto_refresh_disabled(rng):
     assert r.results  # still served via the exact tail scan
 
 
-def test_nprobe_dyn_mask_matches_static(aligned_ivf):
+def test_nprobe_dyn_mask_matches_static(big_ivf):
     """Shared-shape tuning: a search compiled at a static nprobe cap
-    with a runtime nprobe_dyn mask must return exactly what a static
-    nprobe-point search returns (kernels/ivf_scan.py mask)."""
-    from tpurag.kernels.ivf_scan import ivf_scan_pallas
-    from tpurag.kernels.runtime import round_up
+    that stops after a runtime nprobe_dyn probes returns exactly what a
+    static nprobe-point search returns."""
+    _assert_nprobe_dyn_matches_static(big_ivf[1])
 
-    data, ivf = aligned_ivf
+
+def test_nprobe_dyn_mask_matches_static_quant(big_ivf):
+    """The same on the int8 layout (int8 scan + exact rescore)."""
+    ivf = IVFIndex(IVFConfig(n_lists=8, n_probe=4, kmeans_iters=4)
+                   ).build(big_ivf[0], dtype=jnp.float32, quant=True)
+    _assert_nprobe_dyn_matches_static(ivf)
+
+
+def _assert_nprobe_dyn_matches_static(ivf):
     rng = np.random.default_rng(41)
     q = jnp.asarray(np.asarray(l2_normalize(
         rng.standard_normal((4, 48)).astype(np.float32))))
-    c_pad = int(round_up(ivf.c_max, 8))
-    args = (q, ivf.centroids, ivf.emb_ivf, ivf.cluster_starts,
-            ivf.cluster_counts, ivf.row_ids)
     for np_small in (1, 2, 4):
-        sv, si = ivf_scan_pallas(*args, k=10, nprobe=np_small,
-                                 c_pad=c_pad, interpret=True)
-        dv, di = ivf_scan_pallas(*args, k=10, nprobe=ivf.n_lists,
-                                 c_pad=c_pad, interpret=True,
-                                 nprobe_dyn=np.int32(np_small))
+        sv, si = ivf.search(q, k=10, nprobe=np_small)
+        dv, di = ivf.search(q, k=10, nprobe=ivf.n_lists,
+                            nprobe_dyn=np.int32(np_small))
         np.testing.assert_array_equal(np.asarray(di), np.asarray(si))
         np.testing.assert_allclose(np.asarray(dv), np.asarray(sv),
                                    atol=1e-5)
 
 
-def test_tune_nprobe_shared_shape_matches_per_point(aligned_ivf):
+def test_tune_nprobe_shared_shape_matches_per_point(big_ivf):
     """tune_nprobe(shared_shape=...) must pick the same minimal nprobe
-    either way (the interpret path emulates the mask by clamping)."""
-    data, ivf = aligned_ivf
+    either way."""
+    data, ivf = big_ivf
     rng = np.random.default_rng(43)
     q = np.asarray(l2_normalize(
         rng.standard_normal((16, 48)).astype(np.float32)))

@@ -54,13 +54,17 @@ def test_batch_and_data_axes(rng):
     np.testing.assert_array_equal(np.asarray(si), np.asarray(xi))
 
 
-def test_sharded_pallas_interpret(rng):
+def test_sharded_bf16_corpus_matches_single(rng):
+    # The product storage dtype: per-shard scans of a bf16 corpus merge
+    # to the single-device result.
     q, emb = make_data(rng, n=512, d=32, b=2)
+    emb = jnp.asarray(emb, jnp.bfloat16)
     mesh = make_mesh([("data", 8)])
     sv, si = sharded_dense_topk(q, shard_corpus(emb, mesh), jnp.int32(512), 4,
-                                mesh=mesh, use_pallas=True)
+                                mesh=mesh)
     xv, xi = dense_topk_xla(q, emb, jnp.int32(512), 4)
     np.testing.assert_array_equal(np.asarray(si), np.asarray(xi))
+    np.testing.assert_allclose(np.asarray(sv), np.asarray(xv), atol=1e-6)
 
 
 def test_sharded_dense_index(rng):

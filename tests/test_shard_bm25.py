@@ -69,6 +69,21 @@ def test_sharded_bm25_matches_single(rng):
     assert_topk_equivalent(s1, i1, s2, i2)
 
 
+def test_sharded_bm25_device_result_masks_empty_slots(rng):
+    # Fewer hits than k: the device-side result (what hybrid fusion
+    # reads) must carry -1 in the empty slots, as the single index does,
+    # never a hit's id again.
+    single, sharded = build_pair(rng)
+    q = ["quick fox zzz-unseen"]
+    for idx in (single, sharded):
+        s, i = idx.search(q, k=400, as_device=True)
+        s, i = np.asarray(s)[0], np.asarray(i)[0]
+        live = s > -1e38
+        assert live.sum() < 400
+        assert (i[~live] == -1).all()
+        assert len(set(i[live].tolist())) == live.sum()
+
+
 def test_sharded_bm25_scores_are_global_bm25(rng):
     """Impacts must bake the GLOBAL avgdl and idf the GLOBAL df — a
     shard-local formula would diverge on skewed doc lengths."""

@@ -2,8 +2,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from tpurag.kernels.runtime import NEG_INF
-from tpurag.kernels.topk import (merge_topk, merge_topk_cols, select_topk,
-                                 select_topk_q4)
+import pytest
+
+from tpurag.kernels.topk import merge_topk, select_topk
 
 
 def np_topk(scores, ids, k):
@@ -31,78 +32,6 @@ def test_select_topk_tie_break_smallest_id(rng):
     np.testing.assert_array_equal(np.asarray(out), [[2, 5, 9]])
 
 
-def test_select_topk_q4_matches_plain(rng):
-    b, n, k = 5, 2048, 8
-    scores = rng.standard_normal((b, n)).astype(np.float32)
-    ids = np.tile(np.arange(n, dtype=np.int32), (b, 1))
-    pv, pi = select_topk(jnp.asarray(scores), jnp.asarray(ids), k)
-    qv, qi = select_topk_q4(jnp.asarray(scores), jnp.asarray(ids), k)
-    np.testing.assert_allclose(np.asarray(qv), np.asarray(pv), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(qi), np.asarray(pi))
-
-
-def test_select_topk_q4_tie_break(rng):
-    # Equal values scattered across all four quarter slices: winner order
-    # must still be ascending by id, matching select_topk / lax.top_k.
-    n = 64
-    scores = np.zeros((1, n), np.float32)
-    scores[0, [3, 17, 33, 49]] = 1.0   # one tie in each quarter
-    scores[0, [5, 21]] = 0.5
-    ids = np.arange(n, dtype=np.int32)[None]
-    qv, qi = select_topk_q4(jnp.asarray(scores), jnp.asarray(ids), 6)
-    np.testing.assert_array_equal(np.asarray(qi), [[3, 17, 33, 49, 5, 21]])
-
-
-def test_select_topk_q4_exhaustion(rng):
-    # k greater than the number of finite candidates: exhausted slots
-    # must come back <= NEG_INF/2 so callers' -1 masking applies.
-    n, k = 32, 8
-    scores = np.full((2, n), NEG_INF, np.float32)
-    scores[0, [1, 30]] = [2.0, 3.0]
-    scores[1, 4] = 1.0
-    ids = np.tile(np.arange(n, dtype=np.int32), (2, 1))
-    qv, qi = select_topk_q4(jnp.asarray(scores), jnp.asarray(ids), k)
-    qv = np.asarray(qv)
-    np.testing.assert_array_equal(qv[0, :2], [3.0, 2.0])
-    np.testing.assert_array_equal(np.asarray(qi)[0, :2], [30, 1])
-    assert np.all(qv[0, 2:] <= NEG_INF / 2)
-    assert np.all(qv[1, 1:] <= NEG_INF / 2)
-
-
-def test_select_topk_q4_duplicate_neginf_ids(rng):
-    # BM25 segsum rows carry duplicate doc ids on NEG_INF (non-end)
-    # lanes; the winner's duplicates may be masked together but real
-    # values must all surface.
-    n, k = 16, 4
-    scores = np.full((1, n), NEG_INF, np.float32)
-    ids = np.arange(n, dtype=np.int32)[None].copy()
-    scores[0, 2] = 5.0
-    ids[0, 6] = 2      # NEG_INF duplicate of doc 2 in another quarter
-    scores[0, 9] = 4.0
-    qv, qi = select_topk_q4(jnp.asarray(scores), jnp.asarray(ids), k)
-    np.testing.assert_array_equal(np.asarray(qi)[0, :2], [2, 9])
-    np.testing.assert_array_equal(np.asarray(qv)[0, :2], [5.0, 4.0])
-
-
-def test_select_topk_q4_random_duplicates_vs_oracle(rng):
-    # Random data + random duplicate ids parked at NEG_INF: the real-
-    # valued (positive) results must match the plain path exactly.
-    b, n, k = 4, 512, 8
-    scores = rng.standard_normal((b, n)).astype(np.float32)
-    ids = np.tile(np.arange(n, dtype=np.int32), (b, 1))
-    dup = rng.integers(0, n, size=(b, 32))
-    for bi in range(b):
-        ids[bi, dup[bi]] = ids[bi, (dup[bi] * 7) % n]
-        scores[bi, dup[bi]] = NEG_INF
-    pv, pi = select_topk(jnp.asarray(scores), jnp.asarray(ids), k)
-    qv, qi = select_topk_q4(jnp.asarray(scores), jnp.asarray(ids), k)
-    pv, pi, qv, qi = map(np.asarray, (pv, pi, qv, qi))
-    live = pv > NEG_INF / 2
-    np.testing.assert_allclose(qv[live], pv[live], rtol=1e-6)
-    np.testing.assert_array_equal(qi[live], pi[live])
-    assert np.all(qv[~live] <= NEG_INF / 2)
-
-
 def test_merge_topk(rng):
     b, k = 4, 6
     va = rng.standard_normal((b, k)).astype(np.float32)
@@ -118,42 +47,6 @@ def test_merge_topk(rng):
     np.testing.assert_array_equal(np.asarray(ids), ei)
 
 
-def _sorted_cols(rng, k, b, id_base):
-    """Random (K, B) columns sorted desc by (value, asc id) along axis 0."""
-    v = rng.standard_normal((b, k)).astype(np.float32)
-    ids = id_base + rng.permutation(4 * k)[:k].astype(np.int32)
-    ids = np.tile(ids, (b, 1))
-    order = np.lexsort((ids, -v), axis=1)
-    return (np.take_along_axis(v, order, axis=1).T,
-            np.take_along_axis(ids, order, axis=1).T)
-
-
-def test_merge_topk_cols_matches_numpy(rng):
-    k, b = 8, 6
-    av, ai = _sorted_cols(rng, k, b, id_base=0)
-    bv, bi = _sorted_cols(rng, k, b, id_base=100)
-    mv, mi = merge_topk_cols(jnp.asarray(av), jnp.asarray(ai),
-                             jnp.asarray(bv), jnp.asarray(bi))
-    allv = np.concatenate([av, bv], axis=0).T  # (B, 2K)
-    alli = np.concatenate([ai, bi], axis=0).T
-    ev, ei = np_topk(allv, alli, k)
-    np.testing.assert_allclose(np.asarray(mv), ev.T, rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(mi), ei.T)
-
-
-def test_merge_topk_cols_duplicate_values_tie_break(rng):
-    # Equal values across both lists: smaller id must win, per column.
-    k = 4
-    av = np.array([[2.0], [1.0], [1.0], [0.0]], np.float32)
-    ai = np.array([[7], [9], [11], [13]], np.int32)
-    bv = np.array([[1.0], [1.0], [1.0], [-1.0]], np.float32)
-    bi = np.array([[3], [8], [10], [1]], np.int32)
-    mv, mi = merge_topk_cols(jnp.asarray(av), jnp.asarray(ai),
-                             jnp.asarray(bv), jnp.asarray(bi))
-    np.testing.assert_allclose(np.asarray(mv)[:, 0], [2.0, 1.0, 1.0, 1.0])
-    np.testing.assert_array_equal(np.asarray(mi)[:, 0], [7, 3, 8, 9])
-
-
 def test_select_topk_all_neg_inf():
     scores = np.full((2, 8), NEG_INF, np.float32)
     ids = np.tile(np.arange(8, dtype=np.int32), (2, 1))
@@ -161,58 +54,82 @@ def test_select_topk_all_neg_inf():
     assert np.all(np.asarray(vals) <= NEG_INF / 2)
 
 
-def test_merge_topk_cols_asc_matches_desc(rng):
-    from tpurag.kernels.topk import merge_topk_cols_asc
-
-    k, b = 8, 5
-    av, ai = _sorted_cols(rng, k, b, id_base=0)       # desc (K, B)
-    bv, bi = _sorted_cols(rng, k, b, id_base=100)
-    # Ascending running set = row-reversed descending set.
-    mv, mi = merge_topk_cols_asc(jnp.asarray(av[::-1].copy()),
-                                 jnp.asarray(ai[::-1].copy()),
-                                 jnp.asarray(bv), jnp.asarray(bi))
-    allv = np.concatenate([av, bv], axis=0).T
-    alli = np.concatenate([ai, bi], axis=0).T
-    ev, ei = np_topk(allv, alli, k)
-    np.testing.assert_allclose(np.asarray(mv)[::-1], ev.T, rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(mi)[::-1], ei.T)
-
-
-def test_select_topk_q4_lane_matches_plain(rng):
-    from tpurag.kernels.topk import select_topk_q4_lane
-    b, n, k = 5, 2048, 8
+@pytest.mark.parametrize(
+    "b,n,k",
+    [(1, 5, 5),      # k == N: full sort
+     (3, 7, 3),      # odd widths
+     (4, 64, 1),     # k = 1
+     (2, 1000, 16),  # wide row
+     (9, 33, 13)])   # k not a power of two
+def test_select_topk_shapes(rng, b, n, k):
     scores = rng.standard_normal((b, n)).astype(np.float32)
-    ids = np.tile(np.arange(n, dtype=np.int32), (b, 1))
-    pv, pi = select_topk(jnp.asarray(scores), jnp.asarray(ids), k)
-    qv, qi = select_topk_q4_lane(jnp.asarray(scores), k)
-    np.testing.assert_allclose(np.asarray(qv), np.asarray(pv), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(qi), np.asarray(pi))
+    ids = np.stack([rng.permutation(n) for _ in range(b)]).astype(np.int32)
+    vals, out = select_topk(jnp.asarray(scores), jnp.asarray(ids), k)
+    ev, ei = np_topk(scores, ids, k)
+    np.testing.assert_allclose(np.asarray(vals), ev, rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(out), ei)
 
 
-def test_select_topk_q4_lane_ties_and_exhaustion(rng):
-    from tpurag.kernels.topk import select_topk_q4_lane
-    n, k = 64, 6
-    scores = np.full((1, n), NEG_INF, np.float32)
-    scores[0, [3, 17, 33, 49]] = 1.0   # one tie in each quarter
-    scores[0, 5] = 0.5
-    qv, qi = select_topk_q4_lane(jnp.asarray(scores), k)
-    qv, qi = np.asarray(qv), np.asarray(qi)
-    np.testing.assert_array_equal(qi[0, :5], [3, 17, 33, 49, 5])
-    assert qv[0, 5] <= NEG_INF / 2   # exhausted slot
+@pytest.mark.parametrize("levels", [2, 5])
+def test_select_topk_many_ties_vs_oracle(rng, levels):
+    # Few distinct values: every extraction step resolves a tie by id.
+    b, n, k = 6, 200, 12
+    scores = rng.integers(0, levels, (b, n)).astype(np.float32)
+    ids = np.stack([rng.permutation(5 * n)[:n] for _ in range(b)]
+                   ).astype(np.int32)
+    vals, out = select_topk(jnp.asarray(scores), jnp.asarray(ids), k)
+    ev, ei = np_topk(scores, ids, k)
+    np.testing.assert_allclose(np.asarray(vals), ev)
+    np.testing.assert_array_equal(np.asarray(out), ei)
 
 
-def test_fold_candidates_col_base_matches_plain(rng):
-    from tpurag.kernels.topk import fold_candidates_asc, init_run_asc
-    tb, w, k, kp, base = 8, 512, 8, 8, 1000
-    big = 2**30
-    s = rng.standard_normal((tb, w)).astype(np.float32)
-    col = base + np.tile(np.arange(w, dtype=np.int32), (tb, 1))
-    rv0 = jnp.zeros((kp, tb), jnp.float32)
-    ri0 = jnp.zeros((kp, tb), jnp.int32)
-    rv0, ri0 = init_run_asc(rv0, ri0, big)
-    av, ai = fold_candidates_asc(rv0, ri0, jnp.asarray(s),
-                                 jnp.asarray(col), k, big)
-    bv, bi = fold_candidates_asc(rv0, ri0, jnp.asarray(s),
-                                 jnp.asarray(col), k, big, col_base=base)
-    np.testing.assert_allclose(np.asarray(av), np.asarray(bv), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(ai), np.asarray(bi))
+def test_select_topk_empty_slots_sink(rng):
+    # NEG_INF lanes (empty candidates) rank below every live value.
+    scores = rng.standard_normal((3, 20)).astype(np.float32)
+    scores[:, ::2] = NEG_INF
+    ids = np.tile(np.arange(20, dtype=np.int32), (3, 1))
+    vals, out = select_topk(jnp.asarray(scores), jnp.asarray(ids), 12)
+    vals, out = np.asarray(vals), np.asarray(out)
+    assert (vals[:, :10] > NEG_INF / 2).all()
+    assert (out[:, :10] % 2 == 1).all()
+    assert (vals[:, 10:] <= NEG_INF / 2).all()
+
+
+def test_select_topk_never_repeats_a_winner():
+    # Two live lanes, k=5: the empty slots take the NEG_INF lanes' ids,
+    # never a live winner's id a second time.
+    scores = np.full((1, 6), NEG_INF, np.float32)
+    scores[0, 4], scores[0, 1] = 2.0, 1.0
+    ids = np.array([[50, 10, 60, 70, 5, 80]], np.int32)
+    vals, out = select_topk(jnp.asarray(scores), jnp.asarray(ids), 5)
+    vals, out = np.asarray(vals), np.asarray(out)
+    assert out[0, :2].tolist() == [5, 10]
+    assert out[0, 2:].tolist() == [50, 60, 70]
+    assert (vals[0, 2:] == np.float32(NEG_INF)).all()
+
+
+@pytest.mark.parametrize("ka,kb,k", [(4, 9, 6), (8, 8, 16), (3, 5, 1)])
+def test_merge_topk_shapes(rng, ka, kb, k):
+    b = 5
+    va = rng.standard_normal((b, ka)).astype(np.float32)
+    vb = rng.standard_normal((b, kb)).astype(np.float32)
+    ia = np.tile(np.arange(ka, dtype=np.int32), (b, 1))
+    ib = np.tile(np.arange(100, 100 + kb, dtype=np.int32), (b, 1))
+    vals, ids = merge_topk(jnp.asarray(va), jnp.asarray(ia),
+                           jnp.asarray(vb), jnp.asarray(ib), k)
+    ev, ei = np_topk(np.concatenate([va, vb], 1),
+                     np.concatenate([ia, ib], 1), k)
+    np.testing.assert_allclose(np.asarray(vals), ev, rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(ids), ei)
+
+
+def test_merge_topk_equal_values_across_sets():
+    # Equal values in both sets: smaller id wins, whichever set holds it.
+    va = np.array([[2.0, 1.0, 1.0, 0.0]], np.float32)
+    ia = np.array([[7, 9, 11, 13]], np.int32)
+    vb = np.array([[1.0, 1.0, 1.0, -1.0]], np.float32)
+    ib = np.array([[3, 8, 10, 1]], np.int32)
+    vals, ids = merge_topk(jnp.asarray(va), jnp.asarray(ia),
+                           jnp.asarray(vb), jnp.asarray(ib), 4)
+    np.testing.assert_allclose(np.asarray(vals)[0], [2.0, 1.0, 1.0, 1.0])
+    np.testing.assert_array_equal(np.asarray(ids)[0], [7, 3, 8, 9])

@@ -12,8 +12,7 @@ Reference: src/lib/context/engine.ts:79-219 —
   7. compression when usage > 85% (:174-199)
 
 Stage 3/5's heavy lifting is on-device (hybrid_search); the rest is
-host-side prompt assembly. All thresholds mirror the reference's
-(BASELINE.md)."""
+host-side prompt assembly. All thresholds mirror the reference's."""
 
 from __future__ import annotations
 

@@ -100,25 +100,16 @@ class BM25Config:
                                  # to the batch-max df)
     width_ladder: tuple = (64, 256, 1024, 2048)
     # Query width classes round UP to this ladder (exact — storage buckets
-    # keep their natural pow2 width; only the kernel's scan width pads).
-    # Bounds the number of compiled Pallas variants on a long-lived server
-    # to len(ladder) per (k, t) instead of one per pow2 width; the padding
-    # cost is < 2x lanes in the worst case while compile count drops ~2x.
+    # keep their natural pow2 width; only the scoring width pads).
+    # Bounds the number of compiled variants on a long-lived server to
+    # len(ladder) per (k, t) instead of one per pow2 width; the padding
+    # cost is < 2x lanes in the worst case.
     wide_term_width: int = 2048
     # Terms with postings-bucket width ABOVE this score in per-width
-    # WIDE classes (kernels/bm25_pallas.merge_segsum_full) instead of
+    # WIDE classes (kernels/bm25.merge_segsum_full_xla) instead of
     # forcing the whole query's class up to their width; the exact
     # narrow+wide combine is kernels/bm25_join.py. 2048 matches the
-    # width_ladder top, so narrow classes stay on the round-1 fused
-    # kernel unchanged. Raise only if profiling shows wide classes
-    # dominated by few-lane terms; must be a ladder rung or above.
-    packed_merge: bool = True
-    # Pack (doc id, quantized contribution) into one int32 key so the
-    # fused merge network moves half the data (kernels/bm25_pallas.py).
-    # Contribution precision adapts to corpus size (31 - doc-id bits;
-    # >= 12 bits, else the kernel falls back to the two-array form).
-    # Exactness: contributions quantize at <= max_row/2^12 ~ 0.02%; set
-    # False for bit-exact BM25 scores.
+    # width_ladder top. Must be a ladder rung or above.
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,7 +173,7 @@ class ContextConfig:
 @dataclasses.dataclass(frozen=True)
 class IVFConfig:
     """IVF partitioning for large corpora (no reference equivalent — the
-    reference is exact-only; targets from BASELINE.json: recall@10 >= 0.95)."""
+    reference is exact-only; the target is recall@10 >= 0.95)."""
 
     n_lists: int = 1024
     n_probe: int = 64
@@ -212,8 +203,6 @@ class DeviceConfig:
 
     dtype: str = "bfloat16"       # embedding storage dtype in HBM
     dim: int = 1024               # lightrag-service/main.py:188 (dim=1024)
-    query_tile: int = 128         # Pallas tile over the query-batch axis
-    chunk_tile: int = 2048        # Pallas tile over the corpus axis
     min_capacity: int = 4096      # initial corpus capacity (grows by doubling)
 
 

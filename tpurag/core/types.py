@@ -131,7 +131,7 @@ class Relation:
 class QueryTrace:
     """Per-query execution trace.
 
-    TPU-side analogue of the reference's ExecutionTrace
+    Device-side analogue of the reference's ExecutionTrace
     (src/lib/llm/agent.ts:36-51): question -> intent -> retrieval ->
     tool calls -> answer, plus wall-clock per phase."""
 

@@ -1,6 +1,6 @@
 """Graph index: entity/relation embedding kNN + CSR adjacency.
 
-The TPU-native replacement for the LightRAG Python sidecar
+The device-resident replacement for the LightRAG Python sidecar
 (lightrag-service/main.py): entity and relation descriptions are embedded
 into two DenseIndex instances on the same engine; the entity graph is flat
 CSR adjacency on device; query modes mirror LightRAG's

@@ -68,11 +68,11 @@ class DenseIndex:
                  mesh=None, data_axis: str = "data", quant: bool = False,
                  store: str = "device", backing=None):
         """mesh: optional jax.sharding.Mesh — rows shard over `data_axis`
-        and searches run per-shard top-k + ICI all-gather merge
+        and searches run per-shard top-k + all-gather merge
         (tpurag.shard.search). Single-device layout otherwise.
 
         quant: keep an int8 max-abs sidecar of the corpus and scan THAT
-        (2x MXU rate, half the HBM read), then rescore the 2k-overfetched
+        (half the bytes a scan reads), then rescore the 2k-overfetched
         candidates against the full-precision rows — final scores stay
         exact cosines (kernels/quant.py). Under a mesh the sidecar shards
         with the rows and the rescore stays shard-local
@@ -269,7 +269,6 @@ class DenseIndex:
         if self.store == "host":
             scores, ids = self._search_host(q, kk)
         elif self.mesh is not None:
-            from tpurag.kernels.runtime import interpret_mode
             from tpurag.shard.search import (sharded_dense_topk,
                                              sharded_dense_topk_q8)
 
@@ -277,14 +276,12 @@ class DenseIndex:
                 scores, ids = sharded_dense_topk_q8(
                     q, self._q8, self._qscale, self._emb,
                     jnp.int32(self.n_active), kk, mesh=self.mesh,
-                    data_axis=self.data_axis,
-                    use_pallas=not interpret_mode())
+                    data_axis=self.data_axis)
             else:
                 scores, ids = sharded_dense_topk(
                     q.astype(self.dtype), self._emb,
                     jnp.int32(self.n_active), kk, mesh=self.mesh,
-                    data_axis=self.data_axis,
-                    use_pallas=not interpret_mode())
+                    data_axis=self.data_axis)
         elif self.quant and self._q8 is not None:
             scores, ids = dense_topk_q8(
                 q, self._q8, self._qscale, jnp.int32(self.n_active), kk,

@@ -5,18 +5,17 @@ over HTTP (src/lib/meilisearch.ts:210-244). Here the inverted index lives
 on-device as flat CSR arrays and a query batch is scored in one fused XLA
 computation.
 
-TPU-shaped design decisions (measured on v5e):
+Design decisions:
 - Per-posting BM25 impacts are PRECOMPUTED at index-build time:
   impact[j] = tf_j * (k1+1) / (tf_j + k1*(1 - b + b*dl_j/avgdl)).
   Query-time contribution is just idf_t * impact[j], so scoring needs no
-  random per-posting lookups (a random dnorm[doc] gather of 8M elements
-  measured 254ms/batch — the single largest cost in the naive design).
+  random per-posting lookups.
 - Postings are fetched with contiguous dynamic slices (each term's
   postings are adjacent in the CSR arrays), not element gathers.
 - Duplicate-doc merging (a doc matching several query terms) uses
-  sort + cumulative-sum segment reduction over the (B, T*p_max)
-  candidate list — no scatter (XLA TPU scatter-add measured ~260ms for
-  the same workload; the sort path is ~12ms at width 16k).
+  sort + windowed segment reduction over the (B, T*p_max) candidate
+  list. `bm25_topk` is the scatter-add form of the same
+  scores, kept as the cross-check oracle.
 
 Docs with zero matching terms come back as id=-1. `p_max` is a static
 padding bucket; the index layer buckets to powers of two.
@@ -77,34 +76,7 @@ def bm25_topk_segsum(
     b, t = starts.shape
     doc, contrib = _gather_candidates(starts, lens, idf, post_doc,
                                       post_impact, n_valid, p_max)
-    if t & (t - 1) == 0 and p_max & (p_max - 1) == 0:
-        # Each term's lane is already doc-ascending (CSR build order, with
-        # _BIG-parked invalid tails) -> bitonic merge tree, ~5x fewer
-        # compare-exchange stages than a full sort.
-        doc_s, contrib_s = merge_sorted_lists(
-            doc.reshape(b, t, p_max), contrib.reshape(b, t, p_max))
-    else:
-        doc_s, contrib_s = jax.lax.sort((doc, contrib), dimension=1,
-                                        num_keys=1)
-    csum = jnp.cumsum(contrib_s, axis=1)
-    nxt = jnp.concatenate(
-        [doc_s[:, 1:], jnp.full((b, 1), -1, doc_s.dtype)], axis=1)
-    is_end = doc_s != nxt
-    # csum at the previous segment end (0 for the first): csum is monotone
-    # (contributions >= 0), so a shifted running max of end-values works.
-    end_vals = jnp.where(is_end, csum, 0.0)
-    prev = jnp.concatenate(
-        [jnp.zeros((b, 1), csum.dtype), end_vals[:, :-1]], axis=1)
-    prev = jax.lax.cummax(prev, axis=1)
-    seg = jnp.where(is_end & (doc_s < _BIG), csum - prev, NEG_INF)
-    if seg.shape[1] < k:  # fewer candidate slots than k: pad with empties
-        pad = k - seg.shape[1]
-        seg = jnp.pad(seg, ((0, 0), (0, pad)), constant_values=NEG_INF)
-        doc_s = jnp.pad(doc_s, ((0, 0), (0, pad)), constant_values=_BIG)
-    vals, pos = jax.lax.top_k(seg, k)
-    ids = jnp.take_along_axis(doc_s, pos, axis=1).astype(jnp.int32)
-    empty = vals <= 0.0
-    return jnp.where(empty, NEG_INF, vals), jnp.where(empty, -1, ids)
+    return segsum_topk_candidates(doc, contrib, k=k, window=t)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "p_max"))
@@ -119,7 +91,7 @@ def bm25_topk(
     k: int,
     p_max: int,
 ):
-    """Scatter-add reference path (slow on TPU; used for cross-checks)."""
+    """Scatter-add reference path (used for cross-checks)."""
     b, t = starts.shape
     n = int(n_valid) if isinstance(n_valid, int) else None
     doc, contrib = _gather_candidates(starts, lens, idf, post_doc,
@@ -142,23 +114,23 @@ def bm25_topk(
     return vals, ids
 
 
-@functools.partial(jax.jit, static_argnames=("k",))
-def segsum_topk_candidates(doc: jax.Array, contrib: jax.Array, k: int):
+@functools.partial(jax.jit, static_argnames=("k", "window"))
+def segsum_topk_candidates(doc: jax.Array, contrib: jax.Array, k: int,
+                           window: int):
     """Sort + segment-sum + top-k over prepared candidates (B, W): doc ids
-    with invalid lanes parked at _BIG, contributions >= 0. The XLA-side
-    tail used on CPU; the TPU path is the fused Pallas kernel
-    (kernels/bm25_pallas.merge_segsum_topk)."""
+    with invalid lanes parked at _BIG, contributions >= 0, each doc at
+    most `window` times per row (once per query-term slot). The scoring
+    tail of every narrow width class (index/inverted.py).
+
+    The per-doc sums are window-1 shift-adds over the doc-sorted row —
+    sums of at most `window` terms, exact to fp32 rounding, where a
+    cumsum over the whole row would lose digits to cancellation."""
+    from tpurag.kernels.bm25_join import window_segsum
+
     b, w = doc.shape
     doc_s, contrib_s = jax.lax.sort((doc, contrib), dimension=1, num_keys=1)
-    csum = jnp.cumsum(contrib_s, axis=1)
-    nxt = jnp.concatenate(
-        [doc_s[:, 1:], jnp.full((b, 1), -1, doc_s.dtype)], axis=1)
-    is_end = doc_s != nxt
-    end_vals = jnp.where(is_end, csum, 0.0)
-    prev = jnp.concatenate(
-        [jnp.zeros((b, 1), csum.dtype), end_vals[:, :-1]], axis=1)
-    prev = jax.lax.cummax(prev, axis=1)
-    seg = jnp.where(is_end & (doc_s < _BIG), csum - prev, NEG_INF)
+    seg, _ = window_segsum(doc_s, contrib_s, window)
+    seg = jnp.where(doc_s < _BIG, seg, NEG_INF)
     if seg.shape[1] < k:
         pad = k - seg.shape[1]
         seg = jnp.pad(seg, ((0, 0), (0, pad)), constant_values=NEG_INF)
@@ -167,6 +139,31 @@ def segsum_topk_candidates(doc: jax.Array, contrib: jax.Array, k: int):
     ids = jnp.take_along_axis(doc_s, pos, axis=1).astype(jnp.int32)
     empty = vals <= 0.0
     return jnp.where(empty, NEG_INF, vals), jnp.where(empty, -1, ids)
+
+
+def merge_segsum_full_xla(doc: jax.Array, con: jax.Array, p: int,
+                          t: int = 1):
+    """Wide-class form: (B, W=t*p) candidates whose P-blocks are each
+    doc-ascending -> the FULL row (seg, doc_sorted): doc_sorted monotone
+    ascending with parked lanes at 2^30, seg the exact per-doc sum at
+    each segment-end lane and NEG_INF elsewhere. The doc-sorted row is
+    the input of the exact narrow+wide combine (kernels/bm25_join.py).
+
+    Bitonic merge tree over the presorted P-blocks
+    (kernels/sortmerge.py — not a full lax.sort) + windowed shift-add
+    segment reduction (a doc appears at most once per term list, so t-1
+    shift-adds replace the cumsum+cummax pair)."""
+    from tpurag.kernels.bm25_join import window_segsum
+
+    b, w = doc.shape
+    if t == 1:
+        # Already sorted with unique docs: no merge, no segsum.
+        return jnp.where(doc < _BIG, con, NEG_INF), doc
+    doc_s, con_s = merge_sorted_lists(
+        doc.reshape(b, t, p), con.reshape(b, t, p))
+    tot, _ = window_segsum(doc_s, con_s, t)
+    seg = jnp.where((doc_s < _BIG) & (tot > NEG_INF / 2), tot, NEG_INF)
+    return seg, doc_s
 
 
 def rank_compat(scores: jax.Array) -> jax.Array:

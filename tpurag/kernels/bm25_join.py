@@ -2,13 +2,12 @@
 
 BM25 is additive across query terms, so a query's terms can be scored
 in independent groups — narrow terms (bucket width <= 2048) through the
-VMEM-resident fused kernel, huge-df terms at their own width through
-the wide merge (kernels/bm25_pallas.merge_segsum_full) — provided the
-partial per-doc sums are combined EXACTLY afterwards. The reference
-gets this accuracy from Meilisearch's full-postings scoring
-(src/lib/meilisearch.ts:210-244); pre-round-4 the repo paid for it by
-padding every term to the widest term's bucket and full-sorting the
-(B, T*Pmax) row in XLA — ~36ms of the 1M exact-scoring latency.
+sort + segment-sum tail, huge-df terms at their own width through the
+wide merge (kernels/bm25.merge_segsum_full_xla) — provided the partial
+per-doc sums are combined EXACTLY afterwards. The reference gets this
+accuracy from Meilisearch's full-postings scoring
+(src/lib/meilisearch.ts:210-244); without the split every term would
+pad to the widest term's bucket.
 
 The combine exploits that BOTH group outputs are already doc-ascending
 by construction, so no per-lane indexing is needed at all:
@@ -17,31 +16,23 @@ by construction, so no per-lane indexing is needed at all:
    lanes carry the per-doc partial sum, every other lane contributes 0
    at its existing doc id (keeping the row sorted);
 2. one bitonic 2-list merge (kernels/sortmerge.merge_sorted_lists —
-   log2(2W) compare-exchange stages, pure VPU min/max/where);
-3. cumsum segment-sum over the merged row: every doc's segment-end
-   lane now holds its EXACT narrow+wide total (duplicate multiplicity
-   is unbounded-safe, unlike the windowed in-kernel segsum);
+   log2(2W) compare-exchange stages of min/max/where);
+3. a windowed shift-add segment sum over the merged row: every doc's
+   segment-end lane now holds its EXACT narrow+wide total;
 4. one top-k. Exactness is direct: every doc present on either side
    gets its true total, so top-k of the totals is the true top-k.
 
-An earlier form did a per-lane binary-search join (log2(Ww) rounds of
-take_along_axis) + two-sided top-k union. Correct, but XLA lowers the
-per-row-variable gathers to a row-serialized loop on TPU: measured
-~2.4 ms PER ROW regardless of width on v5e (benchmarks/
-bm25_wide_probe5.py — the combines were 1,470 ms of the 1,562 ms 1M
-wide-flow batch). The merge form replaces every gather with shifts and
-selects. The bsearch form is kept below (suffix _bsearch) as the
-parity-test reference.
+The binary-search join form (suffix _bsearch: log2(Ww) rounds of
+take_along_axis + a two-sided top-k union) is kept as the parity-test
+reference.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from tpurag.kernels.runtime import NEG_INF
 
@@ -150,194 +141,6 @@ def tiled_topk(seg: jax.Array, doc: jax.Array, k: int,
     return v2, i2
 
 
-# One combine tile: an _TILE-lane narrow chunk merges against one
-# _TILE-lane wide tile inside the fused VMEM kernel at 2*_TILE=16384
-# lanes — the kernel's proven production width (w=32768 fails Mosaic
-# scoped-VMEM even in the top-k form with unroll=1; probe7, v5e).
-_TILE = 1 << 13
-
-
-def pair_rows(n_val, n_doc, w_con, w_doc, nc: int, tile: int = _TILE):
-    """All-pairs bitonic rows for the tiled combine: (gs, nc*tile)
-    narrow x (gs, wt*tile) wide -> (gs*nc*wt, 2*tile) rows, each
-    [narrow chunk ascending | wide tile flipped] — bitonic at block
-    size 2*tile, the fused kernel's starting merge stage. Inputs carry
-    CONTRIBUTIONS (invalid lanes already zeroed), docs ascending with
-    parked lanes at 2^30."""
-    gs = n_val.shape[0]
-    wt = w_con.shape[1] // tile
-
-    def cat(narrow, wide):
-        nb = jnp.broadcast_to(
-            narrow.reshape(gs, nc, 1, tile), (gs, nc, wt, tile))
-        wb = jnp.broadcast_to(
-            jnp.flip(wide.reshape(gs, 1, wt, tile), axis=3),
-            (gs, nc, wt, tile))
-        return jnp.concatenate([nb, wb], axis=3).reshape(
-            gs * nc * wt, 2 * tile)
-
-    return cat(n_doc, w_doc), cat(n_val, w_con)
-
-
-def combine_pairs_batched(n_val, n_doc, jobs, h: int, k: int,
-                          window: int, tile: int = _TILE,
-                          interpret: bool = False, unroll: int = 0,
-                          tile_b: int = 0):
-    """Exact narrow+wide combine for EVERY wide class in ONE fused
-    kernel call. The per-class tiled combine (combine_narrow_wide_tiled)
-    paid a kernel dispatch + grid ramp per (class) and padded every
-    narrow row to the global wn_max; here all (narrow chunk, wide tile)
-    pair rows are uniform (2*tile)-lane rows, so they concatenate into
-    a single (R, 2*tile) merge_segsum_topk launch, and each member
-    contributes only ceil(own_narrow_width / tile) chunks — members
-    from a 2048-lane narrow class stop paying for a 16384-lane buffer.
-
-    jobs: list of (w_con, w_doc, sel, nc_groups) per wide class —
-    w_con/w_doc (g, wt*tile) doc-ascending segsummed rows
-    (contributions zeroed at invalid lanes, parked doc=2^30), sel (g,)
-    int32 device rows into the (h, k) output, nc_groups a host dict
-    {nc: [member indices]} partitioning range(n_real) by narrow chunk
-    count. Exactness is the per-pair coverage argument of
-    combine_narrow_wide_tiled (each doc's two complete per-side sums
-    meet in exactly one pair; dedup keeps the max = exact copy);
-    dropping all-parked narrow chunks is exact because a chunk beyond
-    a member's own narrow width holds no real docs. `window` bounds
-    one doc's lane span across the two sides combined — callers pass
-    global max_narrow_t + max_wide_t (a larger window only adds
-    zero-contribution shift-adds)."""
-    from tpurag.kernels.bm25_pallas import merge_segsum_topk
-
-    docs, cons, places = [], [], []
-    nrows = 0
-    cn_all = jnp.where(n_val > NEG_INF / 2, n_val, 0.0)
-    for (w_con, w_doc, sel, nc_groups) in jobs:
-        wt = w_con.shape[1] // tile
-        for nc, idxs in sorted(nc_groups.items()):
-            # Callers sort class members by narrow width, so each nc
-            # group is a contiguous index run and selects by SLICE —
-            # a gather-of-gather (sel[ii] with sel a traced argument)
-            # is exactly the indexing pattern the composite bench
-            # faults on (round-4 bisect: "the fault lives in the
-            # real-data flow (gathers)").
-            a, e = idxs[0], idxs[-1] + 1
-            if list(idxs) == list(range(a, e)):
-                ssel = sel[a:e]
-                wcon_g, wdoc_g = w_con[a:e], w_doc[a:e]
-            else:
-                ii = jnp.asarray(np.asarray(idxs, np.int32))
-                ssel = sel[ii]
-                wcon_g, wdoc_g = w_con[ii], w_doc[ii]
-            nv, nd = cn_all[ssel], n_doc[ssel]
-            want = nc * tile
-            if nv.shape[1] >= want:
-                nv, nd = nv[:, :want], nd[:, :want]
-            else:
-                padn = want - nv.shape[1]
-                nv = jnp.pad(nv, ((0, 0), (0, padn)))
-                nd = jnp.pad(nd, ((0, 0), (0, padn)),
-                             constant_values=_BIG)
-            d_r, c_r = pair_rows(nv, nd, wcon_g, wdoc_g, nc, tile)
-            places.append((ssel, len(idxs), nc * wt, nrows))
-            nrows += len(idxs) * nc * wt
-            docs.append(d_r)
-            cons.append(c_r)
-    if not places:
-        return (jnp.full((h, k), NEG_INF, jnp.float32),
-                jnp.full((h, k), -1, jnp.int32))
-    # Launch in bounded-row chunks: one R~2500-row launch measured a
-    # first-exec device fault on v5e where the same rows split across
-    # <=512-row launches (the per-class combine's proven call sizes)
-    # run clean — same context-dependent Mosaic fragility the round-4
-    # full-row form hit, sidestepped rather than fought.
-    max_rows = int(os.environ.get("TPURAG_WIDE_MAXROWS", "512"))
-    outs_v, outs_i = [], []
-    for d_r, c_r in zip(docs, cons):
-        r = d_r.shape[0]
-        for s in range(0, r, max_rows):
-            e = min(s + max_rows, r)
-            vv, ii2 = merge_segsum_topk(
-                d_r[s:e], c_r[s:e], k=k, p=tile, t=window,
-                unroll=unroll, tile_b=tile_b, interpret=interpret)
-            outs_v.append(vv)
-            outs_i.append(ii2)
-    v = outs_v[0] if len(outs_v) == 1 else jnp.concatenate(outs_v, 0)
-    i = outs_i[0] if len(outs_i) == 1 else jnp.concatenate(outs_i, 0)
-    max_pairs = max(npairs for (_, _, npairs, _) in places)
-    cand_v = jnp.full((h, max_pairs * k), NEG_INF, jnp.float32)
-    cand_i = jnp.full((h, max_pairs * k), -1, jnp.int32)
-    for (ssel, gs, npairs, start) in places:
-        vv = v[start:start + gs * npairs].reshape(gs, npairs * k)
-        ij = i[start:start + gs * npairs].reshape(gs, npairs * k)
-        if npairs < max_pairs:
-            padc = (max_pairs - npairs) * k
-            vv = jnp.pad(vv, ((0, 0), (0, padc)),
-                         constant_values=NEG_INF)
-            ij = jnp.pad(ij, ((0, 0), (0, padc)), constant_values=-1)
-        cand_v = cand_v.at[ssel].set(vv)
-        cand_i = cand_i.at[ssel].set(ij)
-    return dedup_topk(cand_v, cand_i, k)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k", "window", "interpret", "tile",
-                                    "tile_b"))
-def combine_narrow_wide_tiled(n_val, n_doc, w_seg, w_doc, k: int,
-                              window: int = 12, interpret: bool = False,
-                              tile: int = _TILE, tile_b: int = 0):
-    """Exact combine through the fused Pallas kernel, one (narrow
-    chunk, wide tile) PAIR at a time. The XLA merge form
-    (combine_narrow_wide) bounces every bitonic stage through HBM
-    (~17 passes at W=128k); here each pair merges entirely in VMEM at
-    2*tile lanes — the fused kernel's proven production width.
-
-    Exactness: both sides are merge_segsum_full-style output, so a
-    doc's COMPLETE partial sum per side sits in ONE valid lane
-    (duplicates carry 0). The (chunk, tile) pair holding both valid
-    lanes sees the doc's exact total; every other pair sees an
-    underestimate (one-sided or zero-lane runs). Per-pair top-k
-    therefore covers the true top-k — if k pair-values beat a doc in
-    its exact pair, k exact totals beat it globally — and dedup_topk
-    folds the (G, pairs*k) candidates keeping each doc's max (= exact)
-    copy."""
-    from tpurag.kernels.bm25_pallas import merge_segsum_topk
-
-    g, wn = n_val.shape
-    ww = w_seg.shape[1]
-    cn = jnp.where(n_val > NEG_INF / 2, n_val, 0.0)
-    cw = jnp.where(w_seg > NEG_INF / 2, w_seg, 0.0)
-    dn, dw = n_doc, w_doc
-    if wn % tile:
-        pad = tile - wn % tile
-        dn = jnp.pad(dn, ((0, 0), (0, pad)), constant_values=_BIG)
-        cn = jnp.pad(cn, ((0, 0), (0, pad)))
-        wn += pad
-    if ww % tile:
-        pad = tile - ww % tile
-        dw = jnp.pad(dw, ((0, 0), (0, pad)), constant_values=_BIG)
-        cw = jnp.pad(cw, ((0, 0), (0, pad)))
-        ww += pad
-    nc, wt = wn // tile, ww // tile
-    # (G, nc, wt, 2*tile) rows: [narrow chunk asc | wide tile flipped]
-    # — each row bitonic at block size 2*tile, the kernel's starting
-    # merge stage.
-    def cat(narrow, wide):
-        nb = jnp.broadcast_to(
-            narrow.reshape(g, nc, 1, tile), (g, nc, wt, tile))
-        wt_a = jnp.broadcast_to(
-            jnp.flip(wide.reshape(g, 1, wt, tile), axis=3),
-            (g, nc, wt, tile))
-        return jnp.concatenate([nb, wt_a], axis=3).reshape(
-            g * nc * wt, 2 * tile)
-
-    doc = cat(dn, dw)
-    con = cat(cn, cw)
-    v, i = merge_segsum_topk(doc, con, k=k, p=tile, t=window,
-                             unroll=1, tile_b=tile_b,
-                             interpret=interpret)
-    return dedup_topk(v.reshape(g, nc * wt * k),
-                      i.reshape(g, nc * wt * k), k)
-
-
 @functools.partial(jax.jit, static_argnames=("k", "window"))
 def combine_narrow_wide(n_val, n_doc, w_seg, w_doc, k: int,
                         window: int = 12):
@@ -382,8 +185,7 @@ def combine_narrow_wide_bsearch(n_val, n_doc, w_seg, w_doc, k: int):
     totals so nothing outranks a true-top narrow-match doc; any doc
     outside the wide top-2k has >= 2k docs with larger raw wide sums,
     at most k of which are narrow-match duplicates). Kept as the
-    parity-test reference — its take_along_axis gathers row-serialize
-    on TPU (see module docstring)."""
+    parity-test reference (see module docstring)."""
     joined = join_add(n_val, n_doc, w_seg, w_doc)
     kn = min(k, joined.shape[1])
     jv, jpos = jax.lax.top_k(joined, kn)

@@ -2,7 +2,7 @@
 
 Reference behavior: LightRAG's local/global query modes walk the entity
 graph one hop from kNN seed entities (lightrag-hku; surfaced through
-lightrag-service/main.py:375-419). On TPU the adjacency is flat CSR
+lightrag-service/main.py:375-419). On device the adjacency is flat CSR
 (neighbor ids + offsets) and the 1-hop expansion is a padded gather —
 static shapes (B, K, max_neighbors), -1 beyond each node's degree."""
 

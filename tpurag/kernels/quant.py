@@ -1,23 +1,18 @@
-"""int8-quantized dense scan: 2x MXU rate, half the HBM traffic.
+"""int8-quantized dense scan with exact rescoring.
 
-The reference scans fp64 JS arrays (src/lib/hybrid-search.ts:217-247); the
-bf16 Pallas scan (kernels/dense.py) already beats that by orders of
-magnitude, but on TPU v5e the MXU runs int8 x int8 -> int32 at twice the
-bf16 rate and an int8 corpus halves the HBM read volume — the two
-resources that bound the scan. This module adds the quantized path:
+The reference scans fp64 JS arrays (src/lib/hybrid-search.ts:217-247).
+An int8 sidecar halves the corpus bytes a scan reads. This module holds:
 
 - per-row symmetric max-abs quantization (`quantize_rows`): row i stores
   round(127 * e_i / max|e_i|) as int8 plus one fp32 scale;
-- a Pallas kernel identical in structure to the bf16 scan (same
-  transposed running-top-k, same column-chunking, same early-skip) but
-  with an int8 MXU matmul and a per-column scale multiply. The query-side
-  scale is a per-ROW constant, so it cannot change that query's ranking —
-  it is applied outside the kernel, keeping the hot loop scale-free;
-- an exact bf16 **rescore** stage: scan int8 at overfetched m >= k,
-  gather the m candidate rows, rescore with the full-precision corpus,
-  re-rank to k. Final scores are then exact cosines; the int8 pass only
-  has to get the *candidate set* right, which it does at recall >=0.99
-  with the default 2x overfetch (gated in tests/test_quant.py).
+- the int8 scan `dense_topk_xla_q8` (exact int32 arithmetic). The
+  query-side scale is a per-ROW constant, so it cannot change that
+  query's ranking — it is applied after the top-k;
+- an exact **rescore** stage: scan int8 at overfetched m >= k, gather
+  the m candidate rows, rescore with the full-precision corpus, re-rank
+  to k. Final scores are then exact cosines; the int8 pass only has to
+  get the *candidate set* right, which it does at recall >=0.99 with the
+  default 2x overfetch (gated in tests/test_quant.py).
 
 Quantization error bound: normalized rows of dim D have |e_j| <~ 5/sqrt(D);
 max-abs int8 keeps relative dot error ~ 1/127 per operand — far below
@@ -30,12 +25,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from tpurag.kernels.dense import _dense_topk_kernel
-from tpurag.kernels.runtime import (NEG_INF, auto_chunk, interpret_mode,
-                                    next_pow2, pad_axis, round_up)
+from tpurag.kernels.runtime import NEG_INF
 
 _BIG_ID = 2**30
 
@@ -73,182 +64,8 @@ def dense_topk_xla_q8(q_i8, q_scale, emb_i8, e_scale, n_valid, k: int):
     return vals * q_scale[:, None], ids
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "tile_b", "tile_n", "chunk_n", "interpret"),
-)
-def dense_topk_pallas_q8(q_i8, q_scale, emb_i8, e_scale, n_valid, k: int,
-                         tile_b: int | None = None, tile_n: int = 2048,
-                         chunk_n: int | None = None,
-                         interpret: bool = False):
-    """Tiled Pallas int8 top-k. Contract of dense_topk_xla_q8.
-
-    q_i8 (B, D) int8 + q_scale (B,) fp32; emb_i8 (N, D) int8 +
-    e_scale (N,) fp32. Returns (B, k) fp32 approx-cosines (descending,
-    oracle tie-break) and int32 ids (-1 when no candidate).
-    """
-    b, d = q_i8.shape
-    n = emb_i8.shape[0]
-    if tile_b is None:
-        tile_b = 256 if (b >= 256 and n <= (1 << 19)) else 128
-    tile_b = min(tile_b, round_up(b, 8))
-    tile_n = min(tile_n, round_up(n, 128))
-    if chunk_n is None:
-        chunk_n = auto_chunk(tile_n, k)  # Mosaic-pressure cap, see runtime
-    chunk_n = min(chunk_n, tile_n)
-    if tile_n % chunk_n:
-        chunk_n = auto_chunk(tile_n, k)  # must divide tile_n
-    bp = round_up(b, tile_b)
-    np_ = round_up(n, tile_n)
-    dp = round_up(d, 128)
-    q = pad_axis(pad_axis(q_i8, 0, bp), 1, dp)
-    e = pad_axis(pad_axis(emb_i8, 0, np_), 1, dp)
-    es = pad_axis(e_scale.astype(jnp.float32), 0, np_).reshape((1, np_))
-    nv = jnp.asarray(n_valid, jnp.int32).reshape((1,))
-
-    grid = (bp // tile_b, np_ // tile_n)
-    kernel = functools.partial(
-        _dense_topk_kernel, k=k, tile_n=tile_n, chunk_n=chunk_n,
-        precision=None, quant=True)
-    vals, ids = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((tile_b, dp), lambda i, j, nv: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_n, dp), lambda i, j, nv: (j, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile_n), lambda i, j, nv: (0, j),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((tile_b, k), lambda i, j, nv: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_b, k), lambda i, j, nv: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((next_pow2(k), tile_b), jnp.float32),
-                pltpu.VMEM((next_pow2(k), tile_b), jnp.int32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((bp, k), jnp.float32),
-            jax.ShapeDtypeStruct((bp, k), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * bp * np_ * dp,
-            bytes_accessed=bp * dp + np_ * dp + np_ * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(nv, q, e, es)
-    # Sentinel ids AND NEG_INF-valued slots both mean "no candidate".
-    # When m > n_valid the masked padding columns can surface with REAL
-    # in-range column ids (they beat the 2^30 sentinels on the id
-    # tie-break) — mask by the pre-scale value so callers can rely on
-    # ids == -1 regardless of q_scale.
-    ids = jnp.where((ids >= _BIG_ID) | (vals <= NEG_INF / 2), -1, ids)
-    qs = pad_axis(q_scale.astype(jnp.float32), 0, bp)
-    return (vals * qs[:, None])[:b], ids[:b]
-
-
-def _gather_scores_kernel(ids_ref, q_ref, e_ref, out_ref, rows, sems, *,
-                          tile_b: int, m: int):
-    """Aligned-block manual DMAs: XLA's row gather on TPU runs ~25x off
-    the HBM roofline (measured 1.5ms for 50MB at 100k x 1024, b=768,
-    m=32). Mosaic rejects single-row slices of the (8,128)-tiled HBM
-    ref, so each candidate fetches its ALIGNED 8-row block (8x the
-    bytes — still tiny next to a scan), all tile_b*m copies in flight
-    at once. The wanted row is then isolated by an iota mask and the
-    per-block sums compacted to (1, m) with one tiny constant-matrix
-    matmul (no sublane reshapes). e_ref stays unblocked in HBM."""
-    g = pl.program_id(0)
-
-    def block_dma(i, j):
-        row = jnp.maximum(ids_ref[g * tile_b + i, j], 0)
-        base = (row // 8) * 8
-        return pltpu.make_async_copy(
-            e_ref.at[pl.ds(base, 8), :],
-            rows.at[pl.ds((i * m + j) * 8, 8), :],
-            sems.at[i, j],
-        )
-
-    for i in range(tile_b):
-        for j in range(m):
-            block_dma(i, j).start()
-    for i in range(tile_b):
-        for j in range(m):
-            block_dma(i, j).wait()
-
-    m8 = m * 8
-    # sub[c] = c % 8, grp[c] = c // 8 over the (m8, 1) column.
-    c_iota = jax.lax.broadcasted_iota(jnp.int32, (m8, 1), 0)
-    sub = jax.lax.rem(c_iota, 8)
-    grp = jax.lax.div(c_iota, 8)
-    # Compaction matrix: S[c, j] = 1 iff candidate j owns block row c.
-    j_iota = jax.lax.broadcasted_iota(jnp.int32, (m8, m), 1)
-    compact = (grp == j_iota).astype(jnp.float32)          # (m8, m)
-
-    for i in range(tile_b):
-        blk = rows[i * m8:(i + 1) * m8, :].astype(jnp.float32)  # (m8, D)
-        qi = q_ref[i:i + 1, :]                                  # (1, D)
-        part = jnp.sum(blk * qi, axis=1, keepdims=True)         # (m8, 1)
-        # Keep only each candidate's own sublane within its block.
-        keep = jnp.zeros((m8, 1), jnp.float32)
-        for j in range(m):
-            rm = jax.lax.rem(jnp.maximum(ids_ref[g * tile_b + i, j], 0), 8)
-            keep = keep + jnp.where((grp == j) & (sub == rm), 1.0, 0.0)
-        picked = part * keep
-        # (1, m) = picked^T @ compact, via dot_general contracting dim 0.
-        s_row = jax.lax.dot_general(
-            picked, compact, dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        out_ref[i:i + 1, :] = s_row
-
-
-@functools.partial(jax.jit, static_argnames=("tile_b", "interpret"))
-def gather_scores_pallas(queries, emb, cand_ids, tile_b: int = 8,
-                         interpret: bool = False):
-    """(B, M) exact dot of each query with its candidate rows (ids < 0
-    score garbage — mask downstream). queries (B, D) fp32, emb (N, D)
-    storage dtype resident in HBM, cand_ids (B, M) int32."""
-    b, d = queries.shape
-    m = cand_ids.shape[1]
-    bp = round_up(b, tile_b)
-    q = pad_axis(queries.astype(jnp.float32), 0, bp)
-    ids = pad_axis(cand_ids, 0, bp)
-    kernel = functools.partial(_gather_scores_kernel, tile_b=tile_b, m=m)
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(bp // tile_b,),
-            in_specs=[
-                pl.BlockSpec((tile_b, d), lambda i, ids: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pl.ANY),
-            ],
-            out_specs=[
-                pl.BlockSpec((tile_b, m), lambda i, ids: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((tile_b * m * 8, emb.shape[1]), emb.dtype),
-                pltpu.SemaphoreType.DMA((tile_b, m)),
-            ],
-        ),
-        out_shape=[jax.ShapeDtypeStruct((bp, m), jnp.float32)],
-        interpret=interpret,
-    )(ids, q, emb)[0]
-    return out[:b]
-
-
-@functools.partial(jax.jit, static_argnames=("k", "use_pallas"))
-def rescore_topk(queries, emb, cand_ids, k: int,
-                 use_pallas: bool | None = None):
+@functools.partial(jax.jit, static_argnames=("k",))
+def rescore_topk(queries, emb, cand_ids, k: int):
     """Exact rescore of candidate ids against the full-precision corpus.
 
     queries (B, D) fp32 (normalized), emb (N, D) storage dtype,
@@ -256,22 +73,10 @@ def rescore_topk(queries, emb, cand_ids, k: int,
     rows per query (M*D*2 bytes each — tiny next to the scan) and re-ranks
     by the exact dot. Returns (B, k) fp32 scores / int32 ids.
     """
-    if use_pallas is None:
-        # Default OFF: the per-row DMA violates the (8,128) HBM tiling
-        # ("Slice shape along dimension 0 must be aligned to tiling (8)",
-        # v5e Mosaic). An aligned-8-row-block gather variant is the
-        # opt-in path under construction; XLA's gather is ~25x off
-        # roofline but costs only a few % next to a >=1M-row scan —
-        # quant's operating regime.
-        use_pallas = False
-    use_pallas = use_pallas and emb.shape[1] % 128 == 0
-    if use_pallas:
-        s = gather_scores_pallas(queries.astype(jnp.float32), emb, cand_ids)
-    else:
-        safe = jnp.maximum(cand_ids, 0)
-        rows = emb[safe].astype(jnp.float32)           # (B, M, D)
-        s = jnp.einsum("bd,bmd->bm", queries.astype(jnp.float32), rows,
-                       precision=jax.lax.Precision.HIGHEST)
+    safe = jnp.maximum(cand_ids, 0)
+    rows = emb[safe].astype(jnp.float32)               # (B, M, D)
+    s = jnp.einsum("bd,bmd->bm", queries.astype(jnp.float32), rows,
+                   precision=jax.lax.Precision.HIGHEST)
     s = jnp.where(cand_ids >= 0, s, NEG_INF)
     # Oracle tie-break (value desc, id asc) over the candidate set.
     order = jnp.argsort(jnp.where(cand_ids >= 0, cand_ids, _BIG_ID), axis=1,
@@ -289,33 +94,25 @@ def rescore_topk(queries, emb, cand_ids, k: int,
 
 
 def dense_topk_q8(queries, emb_i8, e_scale, n_valid, k: int, *,
-                  rescore_emb=None, overfetch: int = 2,
-                  interpret: bool | None = None):
+                  rescore_emb=None, overfetch: int = 2):
     """Quantized dense top-k with optional exact rescoring.
 
     queries: (B, D) float (L2-normalized by the caller, like dense_topk).
     rescore_emb: optional full-precision (N, D) matrix — when given, the
     int8 pass overfetches m = min(overfetch*k, n) candidates and the
     final (scores, ids) are exact cosines from `rescore_topk`.
-    overfetch 2 (not 4): the in-kernel extraction cost grows with m, and
-    2x already recovers ~0.99 of the exact top-k on d=1024 corpora
+    overfetch 2 (not 4): the rescore gather grows with m, and 2x already
+    recovers ~0.99 of the exact top-k on d=1024 corpora
     (tests/test_quant.py gates this).
     """
-    if interpret is None:
-        interpret = interpret_mode()
     q_i8, q_scale = quantize_rows(queries)
     m = min(overfetch * k, int(emb_i8.shape[0])) if rescore_emb is not None \
         else k
-    if interpret:
-        vals, ids = dense_topk_xla_q8(q_i8, q_scale, emb_i8, e_scale,
-                                      jnp.int32(n_valid), m)
-    else:
-        vals, ids = dense_topk_pallas_q8(q_i8, q_scale, emb_i8, e_scale,
-                                         jnp.int32(n_valid), m)
+    vals, ids = dense_topk_xla_q8(q_i8, q_scale, emb_i8, e_scale,
+                                  jnp.int32(n_valid), m)
     if rescore_emb is None:
         return vals, ids
-    # Both scan wrappers guarantee ids == -1 for padding/no-candidate
-    # slots (masked by pre-scale value inside the wrapper), so the ids
-    # feed the rescore directly.
+    # The scan returns ids == -1 for padding/no-candidate slots (masked
+    # by pre-scale value), so the ids feed the rescore directly.
     return rescore_topk(jnp.asarray(queries, jnp.float32), rescore_emb,
                         ids, k)

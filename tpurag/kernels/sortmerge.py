@@ -2,14 +2,13 @@
 
 The BM25 segment-sum path needs the (B, T, P) candidate lists merged into
 one doc-ordered (B, T*P) sequence. `jax.lax.sort` costs O(log^2(T*P))
-compare-exchange stages (~196 at width 16k, ~12ms/batch measured on
-v5e); but each term's postings are ALREADY doc-ascending from the CSR
+compare-exchange stages (~196 at width 16k); but each term's postings are ALREADY doc-ascending from the CSR
 build, so a merge tree of bitonic merges needs only
 sum_{l=1..log T} log(2^l * P) stages (~39 at T=8, P=2048) — ~5x fewer
 passes for identical output.
 
-All ops are reshapes + elementwise min/max/where over the last axis:
-VPU-only, fully fusible by XLA, usable inside Pallas too.
+All ops are reshapes + elementwise min/max/where over the last axis,
+fully fusible by XLA.
 """
 
 from __future__ import annotations

@@ -1,18 +1,13 @@
-"""Vectorized partial top-k primitives.
+"""Partial top-k with explicit candidate ids.
 
-These run both inside Pallas kernels (Mosaic-friendly: only VPU max/where
-ops, no sort, no gather) and in plain jitted JAX. The core is an unrolled
-k-step select: each step extracts the row max, breaks ties toward the
-smallest id, and masks the winner out.
-
-Replaces `lax.top_k` inside kernels where we need a *running* top-k merged
-across corpus tiles without materializing the full (B, N) score matrix —
-the reference materializes all scores in JS (hybrid-search.ts:217-247).
+An unrolled k-step select: each step extracts the row max, breaks ties
+toward the smallest id, and masks the winner out. Used where candidate
+ids are not column positions — merging per-shard, per-split or
+per-segment candidate sets — so the tie-break follows the ids
+(value desc, id asc), the order `lax.top_k` gives over a full row.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +26,10 @@ def select_topk(scores: jax.Array, ids: jax.Array, k: int):
       k: static number of winners.
 
     Returns:
-      (vals, out_ids): each (B, k), sorted descending by score.
+      (vals, out_ids): each (B, k), sorted descending by score. Once a
+      row's real candidates run out, its slots take the NEG_INF lanes'
+      ids in id order (callers mask ids where vals <= NEG_INF / 2); a
+      winner never comes back, because it is masked below NEG_INF.
     """
     s = scores.astype(jnp.float32)
     vals, outs = [], []
@@ -40,161 +38,13 @@ def select_topk(scores: jax.Array, ids: jax.Array, k: int):
         is_max = s >= m
         win = jnp.min(jnp.where(is_max, ids, _BIG_ID), axis=1, keepdims=True)
         chosen = ids == win
-        vals.append(m)
+        vals.append(jnp.maximum(m, NEG_INF))
         outs.append(win)
-        s = jnp.where(chosen, NEG_INF, s)
+        s = jnp.where(chosen, -jnp.inf, s)
     return (
         jnp.concatenate(vals, axis=1),
         jnp.concatenate(outs, axis=1),
     )
-
-
-def select_topk_q4(scores: jax.Array, ids: jax.Array, k: int):
-    """Exact top-k via a quarter-split tournament — same contract and
-    tie-break order as select_topk, ~1.5x fewer VPU ops at k=8.
-
-    The row is split into 4 static stride-W/4 slices (static slices keep
-    Mosaic layouts intact; strided/even-odd halving would relayout).
-    A 5-exchange sorting network orders each lane's 4 slot candidates
-    lex-descending, then each of the k extraction passes runs over W/4
-    lanes instead of W: the winner is always some lane's slot-1 (slot-1
-    lex-dominates its lane; the global lex-max must be a slot-1), and
-    extraction shifts that lane's deeper slots up by one.
-
-    Tie-break correctness: for equal values, every deeper slot's id is
-    larger than its own lane's slot-1 id (lex order), so the min-id
-    winner among slot-1 entries is the min-id winner overall — matching
-    select_topk / lax.top_k order exactly.
-
-    Exhausted slots surface as (NEG_INF, stale-id); callers already mask
-    ids where vals <= NEG_INF/2 (same contract as select_topk, which
-    emits the ids of NEG_INF lanes too).
-
-    Requires W % 4 == 0 and W // 4 >= k; use select_topk otherwise.
-    """
-    w = scores.shape[1]
-    q = w // 4
-    s = scores.astype(jnp.float32)
-    vs = [s[:, i * q:(i + 1) * q] for i in range(4)]
-    ii = [ids[:, i * q:(i + 1) * q] for i in range(4)]
-
-    def ce(a, b):
-        gt = _lex_gt(vs[a], ii[a], vs[b], ii[b])
-        va = jnp.where(gt, vs[a], vs[b])
-        ia = jnp.where(gt, ii[a], ii[b])
-        vb = jnp.where(gt, vs[b], vs[a])
-        ib = jnp.where(gt, ii[b], ii[a])
-        vs[a], ii[a], vs[b], ii[b] = va, ia, vb, ib
-
-    for a, b in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
-        ce(a, b)
-    v1, v2, v3, v4 = vs
-    i1, i2, i3, i4 = ii
-    vals, outs = [], []
-    for _ in range(k):
-        m = jnp.max(v1, axis=1, keepdims=True)
-        win = jnp.min(jnp.where(v1 >= m, i1, _BIG_ID), axis=1,
-                      keepdims=True)
-        chosen = i1 == win
-        vals.append(m)
-        outs.append(win)
-        v1 = jnp.where(chosen, v2, v1)
-        i1 = jnp.where(chosen, i2, i1)
-        v2 = jnp.where(chosen, v3, v2)
-        i2 = jnp.where(chosen, i3, i2)
-        v3 = jnp.where(chosen, v4, v3)
-        i3 = jnp.where(chosen, i4, i3)
-        v4 = jnp.where(chosen, NEG_INF, v4)
-    return jnp.concatenate(vals, axis=1), jnp.concatenate(outs, axis=1)
-
-
-def _q4_enabled(flag: str) -> bool:
-    """Read the q4 opt-in at CALL time (trace time), not import time —
-    two independent flags gate two unrelated experiments:
-      TPURAG_TOPK_Q4       select_topk_q4 on caller-supplied ids
-                           (crashes Mosaic for replicated-layout ids)
-      TPURAG_TOPK_Q4_LANE  the Mosaic-safe q4 lane tournament in the
-                           dense fold (measured slower on v5e)
-    so enabling one never silently re-enables the other."""
-    return os.environ.get(flag, "0") == "1"
-
-
-def select_topk_auto(scores: jax.Array, ids: jax.Array, k: int):
-    """select_topk_q4 when the shape qualifies AND the opt-in flag is set,
-    select_topk otherwise.
-
-    q4 is gated OFF by default: slicing the caller's `ids` crashes the
-    Mosaic vector-layout pass on real v5e whenever ids carry a
-    sublane-REPLICATED layout — e.g. a `broadcasted_iota` along lanes,
-    exactly what the dense fold passes (vector_extract_strided_slice_rule
-    check failure `limits[i] <= dim(i) (32 vs 1)`: the backing vreg
-    array is 1-high on the replicated sublane dim). Bisected on chip in
-    benchmarks/mosaic_q4_probe*.py: sliced LOADED vectors are fine (K3),
-    sliced iotas crash (K5/K6), generated per-quarter iotas are fine
-    (K13). Use select_topk_q4_lane for iota-id callers instead; flip
-    TPURAG_TOPK_Q4=1 only for ids known to be materialized vectors."""
-    w = scores.shape[1]
-    if (_q4_enabled("TPURAG_TOPK_Q4") and w % 4 == 0 and w // 4 >= k
-            and w >= 512):
-        return select_topk_q4(scores, ids, k)
-    return select_topk(scores, ids, k)
-
-
-def select_topk_q4_lane(scores: jax.Array, k: int):
-    """Exact top-k of each row, returning LANE indices — the Mosaic-safe
-    q4 tournament (~1.5x fewer VPU ops than select_topk at k=8).
-
-    Same quarter-split tournament as select_topk_q4, but the candidate
-    ids are per-quarter GENERATED iotas (+ quarter offset), never slices
-    of a caller array — slicing a sublane-replicated iota crashes
-    Mosaic's strided-slice rule on real v5e (see select_topk_auto).
-    Returned ids are positions in [0, W): callers whose ids are affine
-    in the lane (the dense fold: col = base + lane) map them back with
-    one add. Tie-break: equal values resolve toward the SMALLEST lane,
-    which matches smallest-id order exactly when the caller's ids are
-    monotone in lane.
-
-    Exhausted slots surface as (NEG_INF, stale-lane); callers mask ids
-    where vals <= NEG_INF/2 (same contract as select_topk).
-
-    Requires W % 4 == 0 and W // 4 >= k.
-    """
-    w = scores.shape[1]
-    tb = scores.shape[0]
-    q = w // 4
-    s = scores.astype(jnp.float32)
-    vs = [s[:, i * q:(i + 1) * q] for i in range(4)]
-    ql = jax.lax.broadcasted_iota(jnp.int32, (tb, q), 1)
-    ii = [ql + i * q for i in range(4)]
-
-    def ce(a, b):
-        gt = _lex_gt(vs[a], ii[a], vs[b], ii[b])
-        va = jnp.where(gt, vs[a], vs[b])
-        ia = jnp.where(gt, ii[a], ii[b])
-        vb = jnp.where(gt, vs[b], vs[a])
-        ib = jnp.where(gt, ii[b], ii[a])
-        vs[a], ii[a], vs[b], ii[b] = va, ia, vb, ib
-
-    for a, b in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
-        ce(a, b)
-    v1, v2, v3, v4 = vs
-    i1, i2, i3, i4 = ii
-    vals, outs = [], []
-    for _ in range(k):
-        m = jnp.max(v1, axis=1, keepdims=True)
-        win = jnp.min(jnp.where(v1 >= m, i1, _BIG_ID), axis=1,
-                      keepdims=True)
-        chosen = i1 == win
-        vals.append(m)
-        outs.append(win)
-        v1 = jnp.where(chosen, v2, v1)
-        i1 = jnp.where(chosen, i2, i1)
-        v2 = jnp.where(chosen, v3, v2)
-        i2 = jnp.where(chosen, i3, i2)
-        v3 = jnp.where(chosen, v4, v3)
-        i3 = jnp.where(chosen, i4, i3)
-        v4 = jnp.where(chosen, NEG_INF, v4)
-    return jnp.concatenate(vals, axis=1), jnp.concatenate(outs, axis=1)
 
 
 def merge_topk(vals_a, ids_a, vals_b, ids_b, k: int):
@@ -202,145 +52,3 @@ def merge_topk(vals_a, ids_a, vals_b, ids_b, k: int):
     vals = jnp.concatenate([vals_a, vals_b], axis=1)
     ids = jnp.concatenate([ids_a, ids_b], axis=1)
     return select_topk(vals, ids, k)
-
-
-def _lex_gt(va, ia, vb, ib):
-    """(va, ia) sorts strictly before (vb, ib): higher value, or equal
-    value and smaller id — the oracle's (lax.top_k) tie-break order."""
-    return (va > vb) | ((va == vb) & (ia < ib))
-
-
-def init_run_asc(run_v, run_i, big_id: int):
-    """Initial ascending running-set contents: all NEG_INF, sentinel ids
-    DESCENDING down the rows (the ascending comparator orders equal
-    values by id descending, so this is a validly-sorted empty set)."""
-    kp = run_i.shape[0]
-    vals = jnp.full_like(run_v, NEG_INF)
-    ids = big_id + (kp - 1) - jax.lax.broadcasted_iota(
-        jnp.int32, run_i.shape, 0)
-    return vals, ids
-
-
-def fold_candidates_asc(run_v, run_i, s, col, k: int, big_id: int,
-                        col_base=None):
-    """Fold a (tb, chunk) score block into the ascending (kp, tb) running
-    top-k: row-layout select_topk (descending) -> transpose -> pad to kp
-    (still descending) -> elementwise-lexmax + bitonic merge (no reverse,
-    see merge_topk_cols_asc).
-
-    col_base: when the candidate ids are affine in the lane
-    (col = col_base + lane, the dense kernels' layout), pass the scalar
-    base here to allow the Mosaic-safe q4 lane tournament
-    (select_topk_q4_lane). MEASURED SLOWER on v5e at the headline shape
-    (qo b=1024: 3.37ms with q4-lane vs 2.58ms plain,
-    benchmarks/results_dense_co.json) — the 5-exchange network plus the
-    7-where shift chain cost more than the narrower extraction passes
-    save, because the cross-lane reductions are not the linear-cost
-    term. Kept behind TPURAG_TOPK_Q4_LANE=1 for re-evaluation on future
-    hardware; default is the plain k-pass select."""
-    kp = run_v.shape[0]
-    w = s.shape[1]
-    if (_q4_enabled("TPURAG_TOPK_Q4_LANE") and col_base is not None
-            and w % 4 == 0 and w // 4 >= k and w >= 512):
-        tv, lanes = select_topk_q4_lane(s, k)    # (tb, k) desc
-        ti = lanes + col_base
-    else:
-        tv, ti = select_topk(s, col, k)          # (tb, k) desc
-    tvt = tv.T                                   # (k, tb)
-    tit = ti.T
-    if kp > k:
-        pad_v = jnp.full((kp - k,) + tvt.shape[1:], NEG_INF, tvt.dtype)
-        pad_i = big_id + jax.lax.broadcasted_iota(
-            jnp.int32, (kp - k,) + tit.shape[1:], 0)
-        tvt = jnp.concatenate([tvt, pad_v], axis=0)
-        tit = jnp.concatenate([tit, pad_i], axis=0)
-    return merge_topk_cols_asc(run_v, run_i, tvt, tit)
-
-
-def emit_desc(run_v, run_i, k: int):
-    """Top-k rows of the ascending running set as (tb, k) descending."""
-    kp = run_v.shape[0]
-    rows_v = [run_v[j:j + 1] for j in range(kp - 1, kp - 1 - k, -1)]
-    rows_i = [run_i[j:j + 1] for j in range(kp - 1, kp - 1 - k, -1)]
-    return (jnp.concatenate(rows_v, axis=0).T,
-            jnp.concatenate(rows_i, axis=0).T)
-
-
-def merge_topk_cols_asc(av, ai, bv, bi):
-    """Merge column-layout candidates, running set kept ASCENDING.
-
-    av/ai: (K, B) running top-K sorted ASCENDING by (value, desc id) along
-    axis 0 (worst candidate in row 0). bv/bi: (K, B) new candidates sorted
-    DESCENDING (select_topk order). K must be a power of two. Returns the
-    merged top-K, ascending again.
-
-    Because one input is ascending and the other descending, they are
-    already anti-sorted: the top-K union is the elementwise
-    lexmax(a_i, b_i) — NO row reversal needed (the reversal in
-    merge_topk_cols lowered to K single-row concats, which scaled badly
-    in Mosaic as K grew) — followed by a log2(K)-stage bitonic merge
-    sorting ascending.
-    """
-    kp = av.shape[0]
-    assert kp & (kp - 1) == 0, f"K={kp} must be a power of two"
-    keep = _lex_gt(av, ai, bv, bi)
-    mv = jnp.where(keep, av, bv)
-    mi = jnp.where(keep, ai, bi)
-    stride = kp // 2
-    rest = mv.shape[1:]
-    while stride >= 1:
-        shape = (kp // (2 * stride), 2, stride) + rest
-        v2 = mv.reshape(shape)
-        i2 = mi.reshape(shape)
-        lo_v, hi_v = v2[:, 0], v2[:, 1]
-        lo_i, hi_i = i2[:, 0], i2[:, 1]
-        # Ascending: the pair's LOWER slot keeps the lex-smaller element.
-        swap = _lex_gt(lo_v, lo_i, hi_v, hi_i)
-        mv = jnp.stack([jnp.where(swap, hi_v, lo_v),
-                        jnp.where(swap, lo_v, hi_v)], axis=1).reshape(
-            (kp,) + rest)
-        mi = jnp.stack([jnp.where(swap, hi_i, lo_i),
-                        jnp.where(swap, lo_i, hi_i)], axis=1).reshape(
-            (kp,) + rest)
-        stride //= 2
-    return mv, mi
-
-
-def merge_topk_cols(av, ai, bv, bi):
-    """Merge two column-layout (K, B) candidate sets into the top-K.
-
-    Both inputs must be sorted descending by (value, then ascending id)
-    along axis 0; K must be a power of two. Returns (K, B) in the same
-    order. This is the VPU-efficient running-top-k merge: with B on the
-    lane axis every compare-exchange runs at full vreg utilization,
-    whereas a row-layout (B, 2K) select pass uses 2K/128 of each vreg.
-
-    Algorithm: top-K of two sorted-K lists = elementwise
-    lexmax(a_i, reverse(b)_i) (a bitonic sequence), then a log2(K)-stage
-    bitonic merge network along axis 0 sorts it descending.
-    """
-    kp = av.shape[0]
-    assert kp & (kp - 1) == 0, f"K={kp} must be a power of two"
-    # Row-reverse via static slices (Mosaic has no `rev` lowering).
-    bvr = jnp.concatenate([bv[i:i + 1] for i in range(kp - 1, -1, -1)], 0)
-    bir = jnp.concatenate([bi[i:i + 1] for i in range(kp - 1, -1, -1)], 0)
-    keep = _lex_gt(av, ai, bvr, bir)
-    mv = jnp.where(keep, av, bvr)
-    mi = jnp.where(keep, ai, bir)
-    stride = kp // 2
-    rest = mv.shape[1:]
-    while stride >= 1:
-        shape = (kp // (2 * stride), 2, stride) + rest
-        v2 = mv.reshape(shape)
-        i2 = mi.reshape(shape)
-        lo_v, hi_v = v2[:, 0], v2[:, 1]
-        lo_i, hi_i = i2[:, 0], i2[:, 1]
-        swap = _lex_gt(hi_v, hi_i, lo_v, lo_i)
-        mv = jnp.stack([jnp.where(swap, hi_v, lo_v),
-                        jnp.where(swap, lo_v, hi_v)], axis=1).reshape(
-            (kp,) + rest)
-        mi = jnp.stack([jnp.where(swap, hi_i, lo_i),
-                        jnp.where(swap, lo_i, hi_i)], axis=1).reshape(
-            (kp,) + rest)
-        stride //= 2
-    return mv, mi

@@ -8,7 +8,7 @@ applies the relevance threshold, and scores 0.7*relevance + 0.3*freshness
 (store.ts:160). Unlike the reference — where vector delete was never
 implemented (store.ts:240-249) — deletes here tombstone the dense row too.
 
-TPU design note: filtering memory rows out of a shared-index top-k needs
+Design note: filtering memory rows out of a shared-index top-k needs
 an over-fetch that grows with the corpus (top-~N at 100k chunks — the
 round-1 flaw). Instead, memory vectors ALSO live in a small dedicated
 DenseIndex (the "memory segment"): memory-only recall and the 0.9 dup

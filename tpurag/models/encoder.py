@@ -247,7 +247,7 @@ def hash_token_ids(texts: list[str], cfg: EncoderConfig,
     return jnp.asarray(ids), jnp.asarray(mask)
 
 
-# -- checkpointing (npz pytree; VERDICT round-1 item 8) ----------------------
+# -- checkpointing (npz pytree) -----------------------------------------------
 
 
 def _flatten_params(params: dict, prefix: str = "") -> dict:

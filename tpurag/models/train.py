@@ -7,7 +7,7 @@ checkpoint available, train its own: symmetric InfoNCE over text pairs,
 in-batch negatives, the whole step (fwd + bwd + adam) one XLA program on
 the same chip that serves the index.
 
-TPU notes: batch rides the MXU via the (B, D)x(D, B) logits matmul;
+Device notes: the batch rides one (B, D)x(D, B) logits matmul;
 static shapes throughout (pairs are pre-tokenized to a fixed seq_len);
 donate the (params, opt_state) pair so the optimizer updates in place.
 """

@@ -1,6 +1,6 @@
 """ctypes loader for the native C++ runtime (libtpurag.so).
 
-The native library accelerates the host-side hot paths around the TPU:
+The native library accelerates the host-side hot paths around the device:
 tokenization + term counting for inverted-index builds (the reference
 outsources this to the Rust Meilisearch server). Built by
 ``tpurag/native/build.sh``; every entry point has a pure-Python fallback,

@@ -1,7 +1,7 @@
 // Native tokenizer + term counter for inverted-index builds.
 //
 // The reference delegates keyword tokenization to the Meilisearch (Rust)
-// server; this library is the in-process equivalent for the TPU framework's
+// server; this library is the in-process equivalent for the framework's
 // host-side ingest path. Behavior must match tpurag/ingest/tokenizer.py
 // exactly (it is the spec; tests cross-check both):
 //   - ASCII [a-z0-9_]+ runs, lowercased, are word tokens;

@@ -2,9 +2,9 @@
 
 The reference scales keyword search by running Meilisearch as a separate
 server process and batching documents into it over HTTP
-(src/lib/meilisearch.ts:27-259, batch ingest :137-158). TPU-native
-design (round-2 verdict item 3): partition the postings BY DOCUMENT over
-the same `data` mesh axis the dense corpus shards across —
+(src/lib/meilisearch.ts:27-259, batch ingest :137-158). Here the
+postings are partitioned BY DOCUMENT over the same `data` mesh axis the
+dense corpus shards across —
 
 - routing: global doc id g lives on shard p = g % S as local id l = g // S
   (stable under growth, balanced for monotone chunk ids);
@@ -13,21 +13,15 @@ the same `data` mesh axis the dense corpus shards across —
   doc length (avgdl_override) and queries weighted by GLOBAL idf, so
   scores match a single-device index bit-for-near-bit;
 - one shard_map program: every device gathers + scores its local bucket
-  matrices (the same fused Pallas merge/segsum/top-k tail), translates
-  local winners back to global ids (l*S + p), all-gathers the k·(score,
-  id) candidates over ICI — O(B·k·S) bytes, postings never move — and
-  merges the global top-k on every device.
+  matrices (the same sort + segsum + top-k tail), translates local
+  winners back to global ids (l*S + p), all-gathers the k·(score, id)
+  candidates — O(B·k·S) bytes, postings never move — and merges the
+  global top-k on every device.
 
 Mutations (add/delete) route to the owning part and invalidate the
 stacked device layout; the next search rebuilds it (compacting every
 part), mirroring the single index's compaction policy at shard
 granularity.
-
-A packing bonus at scale: the merge kernel's packed-key form needs
-31 - doc_bits >= 12 contribution bits, so a single-device index loses
-it past ~512k docs — but shards score LOCAL ids (doc_bits of n/S), so
-the packed merge stays on to ~4M docs on an 8-shard mesh (cbits is
-computed from max LOCAL doc count below).
 """
 
 from __future__ import annotations
@@ -44,22 +38,21 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from tpurag.core.config import BM25Config
 from tpurag.index.inverted import (InvertedIndex, _BIG, _bucket_score,
-                                   _next_pow2, packed_cbits)
-from tpurag.kernels.runtime import NEG_INF, interpret_mode, round_up
+                                   _next_pow2)
+from tpurag.kernels.runtime import NEG_INF, round_up
 from tpurag.kernels.topk import select_topk
 from tpurag.ingest.tokenizer import tokenize_query
 
 
 def _local_bm25(bucketw, rowid, idf, mats_flat, *, k, k_local, p_max, t,
-                widths, use_pallas, cbits, data_axis, n_shards):
+                widths, data_axis, n_shards):
     """Per-device body: score the local shard, globalize ids, all-gather
     candidates, merge everywhere (same pattern as shard.search)."""
     p = jax.lax.axis_index(data_axis)
     mats = tuple((mats_flat[2 * i][0], mats_flat[2 * i + 1][0])
                  for i in range(len(widths)))
     s, i = _bucket_score(bucketw[0], rowid[0], idf[0], mats, k=k_local,
-                         p_max=p_max, t=t, widths=widths,
-                         use_pallas=use_pallas, cbits=cbits)
+                         p_max=p_max, t=t, widths=widths)
     gids = jnp.where((i >= 0) & (s > NEG_INF / 2),
                      i * n_shards + p.astype(jnp.int32), -1)
     all_v = jax.lax.all_gather(s, data_axis, axis=1, tiled=True)
@@ -72,11 +65,10 @@ def _local_bm25(bucketw, rowid, idf, mats_flat, *, k, k_local, p_max, t,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "k_local", "p_max", "t", "widths", "use_pallas",
-                     "cbits", "mesh", "data_axis"))
+    static_argnames=("k", "k_local", "p_max", "t", "widths", "mesh",
+                     "data_axis"))
 def sharded_bm25_topk(bucketw, rowid, idf, mats, k: int, k_local: int,
                       p_max: int, t: int, widths: tuple,
-                      use_pallas: bool, cbits: int,
                       mesh: Mesh, data_axis: str = "data"):
     """bucketw/rowid/idf: (S, B, T) per-shard query tables; mats: flat
     tuple (doc_0, imp_0, doc_1, imp_1, ...) of (S, R_w+1, w) stacked
@@ -86,8 +78,7 @@ def sharded_bm25_topk(bucketw, rowid, idf, mats, k: int, k_local: int,
     fn = shard_map(
         functools.partial(
             _local_bm25, k=k, k_local=k_local, p_max=p_max, t=t,
-            widths=widths, use_pallas=use_pallas, cbits=cbits,
-            data_axis=data_axis, n_shards=n_shards),
+            widths=widths, data_axis=data_axis, n_shards=n_shards),
         mesh=mesh,
         in_specs=(P(data_axis, None, None), P(data_axis, None, None),
                   P(data_axis, None, None),
@@ -302,10 +293,7 @@ class ShardedInvertedIndex:
         dead = {l * S + p for p, part in enumerate(self.parts)
                 for l in part._dead}
         extra = round_up(len(dead), 8) if dead else 0
-        max_local = max(len(part.doc_len) for part in self.parts)
         kk = min(k + extra, max(self.n_docs, 1))
-        cbits = packed_cbits(max_local, self.config.packed_merge)
-        use_pallas = not interpret_mode()
         scores = jnp.full((bsz, kk), NEG_INF, jnp.float32)
         ids = jnp.full((bsz, kk), -1, jnp.int32)
         for (p_cls, t_cls), members in groups.items():
@@ -317,8 +305,8 @@ class ShardedInvertedIndex:
                 jnp.asarray(rowid[:, sel, :t_cls]),
                 jnp.asarray(idf[:, sel, :t_cls]),
                 mats_dev, k=kk_cls, k_local=k_local, p_max=p_cls,
-                t=t_cls, widths=widths, use_pallas=use_pallas,
-                cbits=cbits, mesh=self.mesh, data_axis=self.data_axis)
+                t=t_cls, widths=widths, mesh=self.mesh,
+                data_axis=self.data_axis)
             if kk_cls < kk:
                 s_c = jnp.pad(s_c, ((0, 0), (0, kk - kk_cls)),
                               constant_values=NEG_INF)

@@ -1,10 +1,10 @@
-"""IVF-sharded corpus search over a device mesh — BASELINE config 5.
+"""IVF-sharded corpus search over a device mesh.
 
 The reference is exact-only brute force (src/lib/hybrid-search.ts:217-247,
-no ANN anywhere); the BASELINE.json target is 10M chunks IVF-sharded on
-v5e-8 with recall@10 >= 0.95 vs the exact oracle.
+no ANN anywhere); the target is recall@10 >= 0.95 vs the exact oracle at
+corpus sizes that need several devices.
 
-Design (cluster-partitioned IVF, the ICI-friendly layout):
+Design (cluster-partitioned IVF):
 - One GLOBAL spherical k-means (index/ivf.kmeans_assign) over the corpus.
 - Clusters are partitioned across the mesh's 'data' axis by greedy
   size-balancing (largest cluster -> lightest shard), so every shard
@@ -16,7 +16,7 @@ Design (cluster-partitioned IVF, the ICI-friendly layout):
   probes) and scans only those clusters — per-shard HBM traffic is
   nprobe_local * Cmax rows instead of N/S.
 - Per-shard top-k candidates (k (score, id) pairs, a few KB) are
-  all-gathered over ICI and merged on every device — the same wire
+  all-gathered and merged on every device — the same wire
   pattern as shard.search.sharded_dense_topk: bytes on the interconnect
   are O(B * k * S), independent of corpus size.
 
@@ -47,34 +47,19 @@ from tpurag.kernels.topk import select_topk
 @functools.partial(
     jax.jit,
     static_argnames=("k", "nprobe_l", "c_max", "mesh", "data_axis",
-                     "batch_axis", "use_pallas", "pipelined"),
+                     "batch_axis"),
 )
-def _sharded_ivf_search(q, cents_g, emb_g, table_g, ids_g, starts_g,
-                        counts_g, k: int, nprobe_l: int, c_max: int,
-                        mesh: Mesh, data_axis: str = "data",
-                        batch_axis: Optional[str] = None,
-                        use_pallas: bool = False,
-                        pipelined: bool = False):
+def _sharded_ivf_search(q, cents_g, emb_g, table_g, ids_g, k: int,
+                        nprobe_l: int, c_max: int, mesh: Mesh,
+                        data_axis: str = "data",
+                        batch_axis: Optional[str] = None):
     """q: (B, D) normalized. Global arrays are stacked per-shard blocks
     sharded over `data_axis`. Returns (B, k) scores + original ids,
-    replicated over 'data' (sharded over `batch_axis` if given).
+    replicated over 'data' (sharded over `batch_axis` if given)."""
 
-    use_pallas: per-shard Pallas probe-scan (kernels/ivf_scan.py —
-    double-buffered cluster DMAs) instead of the XLA gather scan; needs
-    the aligned layout (starts_g/counts_g)."""
-
-    def local(q_l, cents_l, emb_l, table_l, ids_l, starts_l, counts_l):
-        if use_pallas:
-            from tpurag.kernels.ivf_scan import ivf_scan_pallas
-            from tpurag.kernels.runtime import interpret_mode
-
-            vals, orig = ivf_scan_pallas(
-                q_l, cents_l, emb_l, starts_l, counts_l, ids_l,
-                k=k, nprobe=nprobe_l, c_pad=int(round_up(c_max, 8)),
-                interpret=interpret_mode(), pipelined=pipelined)
-        else:
-            vals, orig = ivf_scan(q_l, cents_l, emb_l, table_l, ids_l,
-                                  k=k, nprobe=nprobe_l, c_max=c_max)
+    def local(q_l, cents_l, emb_l, table_l, ids_l):
+        vals, orig = ivf_scan(q_l, cents_l, emb_l, table_l, ids_l,
+                              k=k, nprobe=nprobe_l, c_max=c_max)
         all_vals = jax.lax.all_gather(vals, data_axis, axis=1, tiled=True)
         all_ids = jax.lax.all_gather(orig, data_axis, axis=1, tiled=True)
         # -1 empties share an id; remap to distinct sentinels so the
@@ -89,12 +74,11 @@ def _sharded_ivf_search(q, cents_g, emb_g, table_g, ids_g, starts_g,
         local,
         mesh=mesh,
         in_specs=(qspec, P(data_axis, None), P(data_axis, None),
-                  P(data_axis, None), P(data_axis), P(data_axis),
-                  P(data_axis)),
+                  P(data_axis, None), P(data_axis)),
         out_specs=(qspec, qspec),
         check_vma=False,
     )
-    return fn(q, cents_g, emb_g, table_g, ids_g, starts_g, counts_g)
+    return fn(q, cents_g, emb_g, table_g, ids_g)
 
 
 def partition_clusters(counts: np.ndarray, n_shards: int) -> list[list[int]]:
@@ -128,28 +112,25 @@ class ShardedIVFIndex:
         self.emb_g = None      # (S*Nl, D) storage dtype, data-sharded
         self.table_g = None    # (S*Cl, Cmax) int32 LOCAL row ids, -1 pad
         self.ids_g = None      # (S*Nl,) int32 original global ids, -1 pad
-        self.starts_g = None   # (S*Cl,) int32 8-aligned LOCAL starts
-        self.counts_g = None   # (S*Cl,) int32 live rows per cluster
         self.n = 0
         self.c_max = 0
         self.c_local = 0       # clusters per shard (padded)
         self.n_lists = 0
-        self.align = 8         # cluster-start alignment (128 = pipelined)
 
     @property
     def n_shards(self) -> int:
         return self.mesh.shape[self.data_axis]
 
-    @property
-    def pipelined_eligible(self) -> bool:
-        """Pipelined probe-kernel contract on the PER-SHARD layout
-        (see IVFIndex.pipelined_eligible): n_local is align-rounded, so
-        shard-local starts stay IVF_ALIGN-divisible iff align is."""
-        from tpurag.kernels.ivf_scan import IVF_ALIGN
-
-        return (self.emb_g is not None
-                and getattr(self, "align", 8) % IVF_ALIGN == 0
-                and int(self.emb_g.shape[0]) % IVF_ALIGN == 0)
+    def _shard_layout(self, counts: np.ndarray):
+        """Cluster -> (shard, local start) placement, packed per shard.
+        Returns (bins, n_local): n_local rows per shard, the largest
+        shard load plus one spare padding row, rounded to 8."""
+        bins = partition_clusters(counts, self.n_shards)
+        self.c_local = max(
+            int(round_up(max((len(b) for b in bins), default=1), 8)), 8)
+        load = max((int(sum(int(counts[c]) for c in b)) for b in bins),
+                   default=0)
+        return bins, int(round_up(load + 1, 8))
 
     def build(self, vectors, mesh: Optional[Mesh] = None,
               dtype=jnp.bfloat16, seed: int = 0) -> "ShardedIVFIndex":
@@ -162,35 +143,12 @@ class ShardedIVFIndex:
         n, d = data.shape
         cents, assign, n_lists = kmeans_assign(data, cfg, seed=seed)
         from tpurag.index.ivf import split_oversized
-        from tpurag.kernels.ivf_scan import IVF_ALIGN
 
-        # Same alignment rule as IVFIndex.build: IVF_ALIGN starts turn
-        # on the pipelined probe kernel when mean cluster size affords
-        # the per-cluster padding (per-SHARD rows here).
-        align = IVF_ALIGN if n >= 2 * IVF_ALIGN * n_lists else 8
-        self.align = align
         cents, assign, counts = split_oversized(
-            cents, assign, data, cfg.max_cluster_factor, align=align)
+            cents, assign, data, cfg.max_cluster_factor)
         n_lists = len(counts)
         self.c_max = int(round_up(max(int(counts.max()), 1), 8))
-        bins = partition_clusters(counts, s_count)
-
-        self.c_local = max(
-            int(round_up(max((len(b) for b in bins), default=1), 8)), 8)
-        # Per-shard rows with every cluster start `align`-ALIGNED
-        # (Pallas DMA tiling; 128 also satisfies the pipelined kernel's
-        # BlockSpec mapping) + one c_pad tail block for safe overrun.
-        from tpurag.kernels.ivf_scan import IVF_SCAN_EXTENT
-
-        # Tail covers the largest fixed-size probe-kernel fetch past
-        # the last cluster's start on each shard.
-        c_pad = int(round_up(self.c_max, IVF_SCAN_EXTENT))
-        pad_load = max((int(sum(int(round_up(int(counts[c]), align))
-                               for c in b)) for b in bins), default=0)
-        n_local = max(int(round_up(
-            int(round_up(max(pad_load, 1), align))
-            + c_pad + IVF_SCAN_EXTENT,
-            align)), align)
+        bins, n_local = self._shard_layout(counts)
 
         # Rows grouped cluster-major once; then sliced per shard.
         order = np.argsort(assign, kind="stable")
@@ -201,8 +159,6 @@ class ShardedIVFIndex:
         emb_g = np.zeros((s_count * n_local, d), np.float32)
         table_g = np.full((s_count * self.c_local, self.c_max), -1, np.int32)
         ids_g = np.full((s_count * n_local,), -1, np.int32)
-        starts_g = np.zeros((s_count * self.c_local,), np.int32)
-        counts_g = np.zeros((s_count * self.c_local,), np.int32)
         for s, clusters in enumerate(bins):
             pos = 0
             for li, c in enumerate(clusters):
@@ -213,9 +169,7 @@ class ShardedIVFIndex:
                 table_g[s * self.c_local + li, :m] = np.arange(
                     pos, pos + m, dtype=np.int32)
                 cents_g[s * self.c_local + li] = cents[c]
-                starts_g[s * self.c_local + li] = pos
-                counts_g[s * self.c_local + li] = m
-                pos += int(round_up(m, align))
+                pos += m
 
         sh2 = NamedSharding(self.mesh, P(self.data_axis, None))
         sh1 = NamedSharding(self.mesh, P(self.data_axis))
@@ -223,8 +177,6 @@ class ShardedIVFIndex:
         self.emb_g = jax.device_put(jnp.asarray(emb_g, dtype), sh2)
         self.table_g = jax.device_put(jnp.asarray(table_g), sh2)
         self.ids_g = jax.device_put(jnp.asarray(ids_g), sh1)
-        self.starts_g = jax.device_put(jnp.asarray(starts_g), sh1)
-        self.counts_g = jax.device_put(jnp.asarray(counts_g), sh1)
         self.n = n
         self.n_lists = n_lists
         return self
@@ -238,8 +190,8 @@ class ShardedIVFIndex:
         IVFIndex.build_streaming): k-means on ranged sample reads,
         disk-staged rows + device-assigned blocks, then each block
         scatters straight into the data-sharded device matrix — the
-        host never materializes the corpus (the old path needed ~40 GB
-        of fp32 at the 10M v5e-8 BASELINE config)."""
+        host never materializes the corpus (~40 GB of fp32 at
+        10M x 1024)."""
         import shutil
         import tempfile
 
@@ -247,7 +199,6 @@ class ShardedIVFIndex:
                                       drop_memmap_pages, sample_kmeans,
                                       split_oversized_streaming,
                                       stage_and_assign)
-        from tpurag.kernels.ivf_scan import IVF_ALIGN, IVF_SCAN_EXTENT
 
         if mesh is not None:
             self.mesh = mesh
@@ -273,24 +224,13 @@ class ShardedIVFIndex:
             source, n, d, stage / "rows.npy", _np_storage(dtype),
             False, block, cents, note=note, release=release)
 
-        align = IVF_ALIGN if n >= 2 * IVF_ALIGN * n_lists else 8
-        self.align = align
         counts = np.bincount(assign, minlength=n_lists)
         cents, assign, counts = split_oversized_streaming(
-            cents, assign, counts, cfg.max_cluster_factor, align, staged)
+            cents, assign, counts, cfg.max_cluster_factor, staged)
         drop_memmap_pages(staged)  # split walked the fat clusters
         n_lists = len(counts)
         self.c_max = int(round_up(max(int(counts.max()), 1), 8))
-        bins = partition_clusters(counts, s_count)
-        self.c_local = max(
-            int(round_up(max((len(b) for b in bins), default=1), 8)), 8)
-        c_pad = int(round_up(self.c_max, IVF_SCAN_EXTENT))
-        pad_load = max((int(sum(int(round_up(int(counts[c]), align))
-                               for c in b)) for b in bins), default=0)
-        n_local = max(int(round_up(
-            int(round_up(max(pad_load, 1), align))
-            + c_pad + IVF_SCAN_EXTENT,
-            align)), align)
+        bins, n_local = self._shard_layout(counts)
 
         # Per-cluster placement (shard id, local start) — then a global
         # destination index per ORIGINAL row, so arrival-order blocks
@@ -301,8 +241,6 @@ class ShardedIVFIndex:
         cents_g = np.zeros((s_count * self.c_local, d), np.float32)
         table_g = np.full((s_count * self.c_local, self.c_max), -1,
                           np.int32)
-        starts_g = np.zeros((s_count * self.c_local,), np.int32)
-        counts_g = np.zeros((s_count * self.c_local,), np.int32)
         for s, clusters in enumerate(bins):
             pos = 0
             for li, c in enumerate(clusters):
@@ -311,9 +249,7 @@ class ShardedIVFIndex:
                 cents_g[s * self.c_local + li] = cents[c]
                 table_g[s * self.c_local + li, :m] = np.arange(
                     pos, pos + m, dtype=np.int32)
-                starts_g[s * self.c_local + li] = pos
-                counts_g[s * self.c_local + li] = m
-                pos += int(round_up(m, align))
+                pos += m
 
         order = np.argsort(assign, kind="stable")
         starts_nopad = np.zeros(n_lists + 1, np.int64)
@@ -358,41 +294,34 @@ class ShardedIVFIndex:
         self.emb_g = emb_g
         self.table_g = jax.device_put(jnp.asarray(table_g), sh2)
         self.ids_g = jax.device_put(jnp.asarray(ids_g), sh1)
-        self.starts_g = jax.device_put(jnp.asarray(starts_g), sh1)
-        self.counts_g = jax.device_put(jnp.asarray(counts_g), sh1)
         self.n = n
         self.n_lists = n_lists
         return self
 
     def _nprobe_local(self, nprobe: int) -> int:
-        per = -(-min(nprobe, self.n_lists) // self.n_shards)
-        return max(min(per, self.c_local), 1)
+        """Probes per shard for a total budget of `nprobe`: an even split,
+        except that a budget of n_lists or more scans every local cluster
+        (size balancing can give one shard more than n_lists/S lists)."""
+        if nprobe >= self.n_lists:
+            return self.c_local
+        return max(min(-(-nprobe // self.n_shards), self.c_local), 1)
 
     def search(self, queries, k: int, nprobe: Optional[int] = None,
                batch_axis: Optional[str] = None):
-        from tpurag.kernels.runtime import interpret_mode
-
         nprobe = nprobe or self.config.n_probe
         q = l2_normalize(queries)
         if q.ndim == 1:
             q = q[None]
-        # The probe kernel streams fixed sub<=128-row blocks, so its VMEM
-        # footprint is independent of c_max — only the aligned layout
-        # (post-round-3 builds) is required.
-        use_pallas = not interpret_mode() and self.starts_g is not None
-        pipelined = self.pipelined_eligible
         return _sharded_ivf_search(
             q, self.cents_g, self.emb_g, self.table_g, self.ids_g,
-            self.starts_g, self.counts_g,
             k=k, nprobe_l=self._nprobe_local(nprobe), c_max=self.c_max,
-            mesh=self.mesh, data_axis=self.data_axis, batch_axis=batch_axis,
-            use_pallas=use_pallas, pipelined=pipelined)
+            mesh=self.mesh, data_axis=self.data_axis, batch_axis=batch_axis)
 
     def tune_nprobe(self, queries, exact_ids, k: int = 10,
                     target_recall: float = 0.95,
                     start: Optional[int] = None) -> int:
         """Smallest total-probe budget meeting the recall gate vs the
-        exact oracle (the BASELINE gate), doubling from `start`
+        exact oracle, doubling from `start`
         (default: n_shards — one probe per shard)."""
         exact = np.asarray(exact_ids)
 
@@ -436,10 +365,6 @@ class ShardedIVFIndex:
         s_count = self.n_shards
         cl, nl = self.c_local, self.emb_g.shape[0] // s_count
         for s in range(s_count):
-            extra = {}
-            if self.starts_g is not None:  # legacy loads lack these
-                extra["starts"] = np.asarray(self.starts_g[s * cl:(s + 1) * cl])
-                extra["counts"] = np.asarray(self.counts_g[s * cl:(s + 1) * cl])
             np.savez(
                 d / f"ivf_shard_{s:03d}",
                 cents=np.asarray(self.cents_g[s * cl:(s + 1) * cl],
@@ -448,12 +373,10 @@ class ShardedIVFIndex:
                                np.float32).astype(np.float32),
                 table=np.asarray(self.table_g[s * cl:(s + 1) * cl]),
                 ids=np.asarray(self.ids_g[s * nl:(s + 1) * nl]),
-                **extra,
             )
         (d / "ivf_meta.json").write_text(json.dumps({
             "n": self.n, "c_max": self.c_max, "c_local": self.c_local,
             "n_lists": self.n_lists, "n_shards": s_count,
-            "align": getattr(self, "align", 8),
             "dtype": str(self.emb_g.dtype),
         }))
 
@@ -479,18 +402,12 @@ class ShardedIVFIndex:
                         jnp.dtype(meta["dtype"])), sh2)
         idx.table_g = jax.device_put(
             jnp.asarray(np.concatenate([p["table"] for p in parts])), sh2)
+        # Saves with cluster-aligned starts carry padding rows between
+        # clusters; table lists only live rows, so they load as is.
         idx.ids_g = jax.device_put(
             jnp.asarray(np.concatenate([p["ids"] for p in parts])), sh1)
-        if "starts" in parts[0]:  # pre-aligned-layout saves lack these
-            idx.starts_g = jax.device_put(
-                jnp.asarray(np.concatenate([p["starts"] for p in parts])),
-                sh1)
-            idx.counts_g = jax.device_put(
-                jnp.asarray(np.concatenate([p["counts"] for p in parts])),
-                sh1)
         idx.n = meta["n"]
         idx.c_max = meta["c_max"]
         idx.c_local = meta["c_local"]
         idx.n_lists = meta["n_lists"]
-        idx.align = meta.get("align", 8)  # legacy saves: 8-aligned
         return idx

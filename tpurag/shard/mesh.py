@@ -2,10 +2,10 @@
 
 The reference's "distribution" is four OS processes talking HTTP
 (SURVEY.md §2.12). Here distribution is a jax.sharding.Mesh: the corpus
-axis shards over 'data' (each chip scans its slice of the embedding
-matrix over ICI-local HBM), and the query batch can shard over 'batch'
-(data-parallel query streams). Multi-host extends the same mesh over DCN
-via jax.distributed.initialize."""
+axis shards over 'data' (each device scans its slice of the embedding
+matrix in its own memory), and the query batch can shard over 'batch'
+(data-parallel query streams). Multi-host extends the same mesh across
+hosts via jax.distributed.initialize."""
 
 from __future__ import annotations
 

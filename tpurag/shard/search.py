@@ -1,11 +1,11 @@
-"""Sharded corpus search: per-shard top-k + ICI all-gather merge.
+"""Sharded corpus search: per-shard top-k + all-gather merge.
 
-Design (SURVEY.md §2.12/§5.8, "How to Scale Your Model" recipe): shard the
-chunk axis of the embedding matrix over the 'data' mesh axis; each device
-scans only its local rows (HBM-bandwidth-parallel); per-shard top-k
-candidates — k·(score,id) pairs, a few KB — are all-gathered over ICI and
-merged on every device. The bytes on the interconnect are O(B·k·shards),
-independent of corpus size: the corpus never moves.
+Design (SURVEY.md §2.12/§5.8): shard the chunk axis of the embedding
+matrix over the 'data' mesh axis; each device scans only its local rows
+(memory-bandwidth-parallel); per-shard top-k candidates — k·(score,id)
+pairs, a few KB — are all-gathered and merged on every device. The bytes
+on the interconnect are O(B·k·shards), independent of corpus size: the
+corpus never moves.
 
 The query batch can additionally shard over a 'batch' axis (data-parallel
 query streams); each batch shard runs the same corpus-sharded search.
@@ -21,26 +21,20 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from tpurag.kernels.dense import dense_topk_pallas, dense_topk_xla
-from tpurag.kernels.quant import (dense_topk_pallas_q8, dense_topk_xla_q8,
-                                  quantize_rows, rescore_topk)
-from tpurag.kernels.runtime import interpret_mode
+from tpurag.kernels.dense import dense_topk
+from tpurag.kernels.quant import (dense_topk_xla_q8, quantize_rows,
+                                  rescore_topk)
 from tpurag.kernels.topk import select_topk
 
 
-def _local_search(q, emb_local, n_valid, k, shard_rows, data_axis,
-                  use_pallas):
+def _local_search(q, emb_local, n_valid, k, shard_rows, data_axis):
     """Runs per-device inside shard_map."""
     shard_idx = jax.lax.axis_index(data_axis)
     offset = shard_idx * shard_rows
     n_local = jnp.clip(n_valid - offset, 0, shard_rows)
-    if use_pallas:
-        vals, ids = dense_topk_pallas(q, emb_local, n_local, k,
-                                      interpret=interpret_mode())
-    else:
-        vals, ids = dense_topk_xla(q, emb_local, n_local, k)
+    vals, ids = dense_topk(q, emb_local, n_local, k)
     gids = jnp.where(ids >= 0, ids + offset, -1)
-    # All-gather the tiny candidate sets over ICI and merge everywhere.
+    # All-gather the tiny candidate sets and merge everywhere.
     all_vals = jax.lax.all_gather(vals, data_axis, axis=1, tiled=True)
     all_ids = jax.lax.all_gather(gids, data_axis, axis=1, tiled=True)
     # Re-unique ids for tie-breaking: -1 empties share an id; map them to
@@ -52,7 +46,7 @@ def _local_search(q, emb_local, n_valid, k, shard_rows, data_axis,
 
 
 def _local_search_q8(q, q8, qs, e8_local, es_local, emb_local, n_valid, k,
-                     overfetch, shard_rows, data_axis, use_pallas):
+                     overfetch, shard_rows, data_axis):
     """Quantized per-device search: int8 scan at m = overfetch*k, then an
     exact rescore of the m candidates against the LOCAL full-precision
     rows — the gather never crosses shards, so the only inter-device
@@ -63,12 +57,8 @@ def _local_search_q8(q, q8, qs, e8_local, es_local, emb_local, n_valid, k,
     offset = shard_idx * shard_rows
     n_local = jnp.clip(n_valid - offset, 0, shard_rows)
     m = min(overfetch * k, shard_rows)
-    if use_pallas:
-        cv, cand = dense_topk_pallas_q8(q8, qs, e8_local, es_local,
-                                        n_local, m)
-    else:
-        cv, cand = dense_topk_xla_q8(q8, qs, e8_local, es_local, n_local, m)
-    del cv  # both q8 wrappers return ids == -1 for padding/no-candidate
+    cv, cand = dense_topk_xla_q8(q8, qs, e8_local, es_local, n_local, m)
+    del cv  # the q8 scan returns ids == -1 for padding/no-candidate
     vals, ids = rescore_topk(q, emb_local, cand, k)
     gids = jnp.where(ids >= 0, ids + offset, -1)
     all_vals = jax.lax.all_gather(vals, data_axis, axis=1, tiled=True)
@@ -81,8 +71,7 @@ def _local_search_q8(q, q8, qs, e8_local, es_local, emb_local, n_valid, k,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "overfetch", "mesh", "data_axis", "batch_axis",
-                     "use_pallas"),
+    static_argnames=("k", "overfetch", "mesh", "data_axis", "batch_axis"),
 )
 def sharded_dense_topk_q8(
     queries: jax.Array,   # (B, D) float, L2-normalized
@@ -95,7 +84,6 @@ def sharded_dense_topk_q8(
     overfetch: int = 2,
     data_axis: str = "data",
     batch_axis: Optional[str] = None,
-    use_pallas: bool = False,
 ):
     """Corpus-sharded int8 scan + per-shard exact rescore (see
     _local_search_q8). Same contract as sharded_dense_topk."""
@@ -109,8 +97,7 @@ def sharded_dense_topk_q8(
     fn = shard_map(
         functools.partial(
             _local_search_q8, k=k, overfetch=overfetch,
-            shard_rows=shard_rows, data_axis=data_axis,
-            use_pallas=use_pallas),
+            shard_rows=shard_rows, data_axis=data_axis),
         mesh=mesh,
         in_specs=(qspec, qspec, P(batch_axis), P(data_axis, None),
                   P(data_axis), P(data_axis, None), P()),
@@ -123,7 +110,7 @@ def sharded_dense_topk_q8(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "mesh", "data_axis", "batch_axis", "use_pallas"),
+    static_argnames=("k", "mesh", "data_axis", "batch_axis"),
 )
 def sharded_dense_topk(
     queries: jax.Array,   # (B, D)
@@ -133,7 +120,6 @@ def sharded_dense_topk(
     mesh: Mesh,
     data_axis: str = "data",
     batch_axis: Optional[str] = None,
-    use_pallas: bool = False,
 ):
     """Corpus-sharded dense top-k over a device mesh.
 
@@ -148,7 +134,7 @@ def sharded_dense_topk(
     fn = shard_map(
         functools.partial(
             _local_search, k=k, shard_rows=shard_rows,
-            data_axis=data_axis, use_pallas=use_pallas),
+            data_axis=data_axis),
         mesh=mesh,
         in_specs=(qspec, P(data_axis, None), P()),
         out_specs=(qspec, qspec),
